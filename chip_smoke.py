@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and hold every
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and hold every
 kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
@@ -10,19 +10,30 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: every kernel under nomad_tpu_torch/tpu/csrc/ compiled with nvcc
    for sm_90a (one nvcc per source, started together);
-3. kernel vs plain: the placement scan kernel against its plain PyTorch
-   version on the card, bit for bit, at 5,000 nodes and P = 1,024 for
-   each specialization of the step, at n_pad >= 32,768, and B = 3 evals
-   in one launch against three single launches;
-4. the slice: four evals of the C1M job mix (bench.py c1m_mixed_jobs
-   templates 0, 10, 28, and 10 re-registered with its cpu raised by 1)
-   through the port's scheduler Harness on CUDA at 5,000 nodes; the
-   kernel's launch count must rise, no eval may take the unported or
-   fallback gate, every alloc must be placed, and the plans must equal
-   the port's own host binpack stack on the same state;
-5. the main path's kernel inputs replayed: kernel vs plain, bit for bit,
-   with the kernel's time, the plain version's time and the kernel's
-   bound on this card.
+3. kernel vs plain, int arm: the placement scan kernel against its plain
+   PyTorch version on the card, bit for bit, at 5,000 nodes and P = 1,024
+   for each specialization of the step, at n_pad >= 32,768, and B = 3
+   evals in one launch against three single launches;
+4. kernel vs plain, float arm: the same variants in float32, held by the
+   placement-multiset divergence (bound 0) and the score difference at
+   equal picks (``parity.FLOAT_SCORE_TOL``); then, in both arms, B = 8
+   evals in one launch (K3) against eight single launches, with times;
+5. the Harness slice: four evals of the C1M job mix (bench.py
+   c1m_mixed_jobs templates 0, 10, 28, and 10 re-registered with its cpu
+   raised by 1) through the port's scheduler Harness on CUDA at 5,000
+   nodes (int arm); the kernel's launch count must rise, no eval may
+   take the unported or fallback gate, every alloc must be placed, and
+   the plans must equal the port's own host binpack stack on the same
+   state;
+6. the server slice, twice: the port's Server at ServerConfig defaults
+   (float arm) and with deterministic=True (int arm), 5,000 C1M nodes,
+   16 workers, the C1M job mix cut to 60,000 placements; every placement
+   committed to the FSM, no node overcommitted, nothing unported or
+   fallen back, the arm's kernel launched, a mean eval batch above 1;
+7. the main paths' kernel inputs replayed (the Harness evals, and the
+   first and last batched launch of each server run): kernel vs plain
+   (int bit for bit, float within the bound), with the kernel's time,
+   the plain version's time and the kernel's bound on this card.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -46,6 +57,9 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 N_NODES = 5000
 P_VARIANT = 1024
+SERVER_PLACEMENTS = 60_000
+SERVER_WORKERS = 16
+BATCH_B = 8
 DEVICE = "cuda"
 
 
@@ -112,6 +126,18 @@ def run_plain(step, n_pad, static, carry, xs):
     return step.place_scan(n_pad, static, carry, xs)
 
 
+def plain_batched(step, static_b, carry_b, xs_b):
+    """The plain version of a K3 launch: each eval of the batch in turn."""
+    import torch
+
+    outs = [step.place_scan(static_b[0].shape[1], tuple(t[b] for t in static_b),
+                            tuple(t[b] for t in carry_b), tuple(t[b] for t in xs_b))
+            for b in range(static_b[0].shape[0])]
+    carry = tuple(torch.stack(col) for col in zip(*(o[0] for o in outs)))
+    ys = tuple(torch.stack(col) for col in zip(*(o[1] for o in outs)))
+    return carry, ys
+
+
 def phase_variants(kernels, step, convert, engine):
     """Kernel vs plain on the card for every specialization of the step."""
     import numpy as np
@@ -154,29 +180,230 @@ def phase_variants(kernels, step, convert, engine):
     return worst
 
 
+def phase_float_variants(kernels, step, convert, engine):
+    """Float arm: kernel vs plain on the card for every specialization of
+    the step (nomad_tpu_torch/tpu/parity.py ``check_float_scan``);
+    returns the largest |dscore| at equal picks."""
+    import numpy as np
+
+    from nomad_tpu_torch.tpu import parity
+
+    worst = 0.0
+    for variant in engine.SCAN_VARIANTS:
+        n_pad, st, ca, xs = engine.example_scan_variant(
+            variant, n_nodes=N_NODES, n_tgs=3, n_placements=P_VARIANT, seed=1,
+            dtype=np.float32)
+        s, c, x = convert.scan_inputs_to_torch(st, ca, xs, DEVICE)
+        k_out = run_kernel(kernels, n_pad, s, c, x)
+        p_out, p_ms = timed_wall(lambda: run_plain(step, n_pad, s, c, x))
+        div, diff, exact = parity.check_float_scan(p_out, k_out, x[0], f"float variant {variant}")
+        worst = max(worst, diff)
+        k_ms = cuda_ms(lambda: run_kernel(kernels, n_pad, s, c, x))
+        placed = int((k_out[1][0] >= 0).sum())
+        log(f"float variant {variant:18s} n_pad={n_pad} P={P_VARIANT} placed={placed} "
+            f"divergence={div} max_abs_dscore={diff!r} bit_exact={'yes' if exact else 'no'} "
+            f"kernel_ms={k_ms:.3f} plain_ms={p_ms:.1f}")
+    return worst
+
+
+def phase_batched(kernels, convert, engine):
+    """K3: B = 8 evals in one launch against eight single launches, in
+    both arms: equal outputs (int bit for bit, float within the bound),
+    the batched launch's time against the single launches'."""
+    import numpy as np
+
+    from nomad_tpu_torch.tpu import parity
+
+    for arm, dtype in (("int", np.int32), ("float", np.float32)):
+        evals = [engine.example_scan_variant("all", n_nodes=N_NODES, n_tgs=3,
+                                             n_placements=P_VARIANT, seed=s, dtype=dtype)
+                 for s in range(21, 21 + BATCH_B)]
+        n_pad = evals[0][0]
+        singles, single_ms = [], []
+        for _, st, ca, xs in evals:
+            s, c, x = convert.scan_inputs_to_torch(st, ca, xs, DEVICE)
+            singles.append(run_kernel(kernels, n_pad, s, c, x))
+            single_ms.append(cuda_ms(lambda: run_kernel(kernels, n_pad, s, c, x)))
+        stacked = [tuple(np.stack(col) for col in zip(*(e[k] for e in evals))) for k in (1, 2, 3)]
+        sb, cb, xb = convert.scan_inputs_to_torch(*stacked, DEVICE)
+        carry_b, ys_b = kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb)
+        worst = 0.0
+        for b, (sc, sy) in enumerate(singles):
+            got = (tuple(t[b] for t in carry_b), tuple(y[b] for y in ys_b))
+            if arm == "int":
+                compare(got, (sc, sy), f"batched {arm} eval {b}")
+            else:
+                worst = max(worst, parity.check_float_scan(
+                    (sc, sy), got, xb[0][b], f"batched {arm} eval {b}")[1])
+        b_ms = cuda_ms(lambda: kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb))
+        nbytes, ops = kernels.place_scan_batched_work(sb, cb, xb, ys_b[3])
+        bound_ms = max(nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S) * 1e3
+        log(f"K3 {arm} B={BATCH_B} n_pad={n_pad} P={P_VARIANT}: equal to {BATCH_B} single "
+            f"launches (max |dscore| {worst!r}); batched_ms={b_ms:.3f} "
+            f"singles_sum_ms={sum(single_ms):.3f} singles_max_ms={max(single_ms):.3f} "
+            f"ratio_to_slowest_single={b_ms / max(single_ms):.3f} bytes={nbytes} ops={ops} "
+            f"bound_ms={bound_ms:.6f}")
+
+
+def c1m_templates():
+    """Own copy of the 40 job templates of bench.py ``c1m_mixed_jobs``
+    (BASELINE config 5): 28 service (the first 10 with spread + affinity
+    stanzas) and 12 batch, with heterogeneous asks and counts."""
+    cpus, mems = [8, 12, 16, 20], [16, 24, 32, 48]
+    counts_svc, counts_batch = [900, 950, 1000], [950, 1000]
+    templates = [dict(kind="service", cpu=cpus[t % 4], mem=mems[(t // 4) % 4],
+                      count=counts_svc[t % 3], stanzas=t < 10) for t in range(28)]
+    templates += [dict(kind="batch", cpu=cpus[t % 4], mem=mems[t % 4],
+                       count=counts_batch[t % 2], stanzas=False) for t in range(12)]
+    return templates
+
+
+def c1m_job(pkg_mock, structs, tpl, job_id, count):
+    j = pkg_mock.job() if tpl["kind"] == "service" else pkg_mock.batch_job()
+    j.id = job_id
+    tg = j.task_groups[0]
+    tg.count = count
+    tg.ephemeral_disk.size_mb = 50
+    tg.tasks[0].resources = structs.Resources(cpu=tpl["cpu"], memory_mb=tpl["mem"])
+    if tpl["stanzas"]:
+        tg.spreads = [structs.Spread(
+            attribute="${node.datacenter}", weight=50,
+            spread_target=[structs.SpreadTarget(value="dc1", percent=100)])]
+        tg.affinities = [structs.Affinity(
+            ltarget="${attr.kernel.name}", rtarget="linux", operand="=", weight=50)]
+    return j
+
+
+def c1m_mixed_jobs(pkg_mock, structs, total):
+    """bench.py ``c1m_mixed_jobs``: the templates instantiated round-robin
+    until the placement count is exactly ``total``."""
+    templates = c1m_templates()
+    jobs, placed, i = [], 0, 0
+    while placed < total:
+        tpl = templates[i % len(templates)]
+        count = min(tpl["count"], total - placed)
+        jobs.append(c1m_job(pkg_mock, structs, tpl, f"c1m-{i}", count))
+        placed += count
+        i += 1
+    return jobs
+
+
+def phase_server(kernels, deterministic: bool, seed: int):
+    """The server slice at ServerConfig defaults (deterministic=False: the
+    float arm) or with deterministic=True (the int arm): 5,000 C1M nodes,
+    num_schedulers=0 plus 16 explicit Workers (as bench.py bench_system),
+    the C1M job mix cut to SERVER_PLACEMENTS. Returns the run's record
+    and the inputs of its first and last batched launch."""
+    import numpy as np
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.server.fsm import NODE_REGISTER
+    from nomad_tpu_torch.server.server import Server, ServerConfig
+    from nomad_tpu_torch.server.worker import Worker
+    from nomad_tpu_torch.structs import structs
+    from nomad_tpu_torch.structs.funcs import allocs_fit
+    from nomad_tpu_torch.utils import metrics, phases
+
+    arm = "int" if deterministic else "float"
+    rng = np.random.default_rng(seed)
+    server = Server(ServerConfig(num_schedulers=0, deterministic=deterministic,
+                                 device=DEVICE), name=f"smoke-{arm}")
+    counted = []
+    orig_incr = metrics.incr_counter
+    orig_batched = kernels.place_scan_batched
+    launches_in = []
+
+    def count(name, value=1.0):
+        counted.append(name)
+        orig_incr(name, value)
+
+    def capture(static_b, carry_b, xs_b):
+        launches_in.append(tuple(tuple(t.clone() for t in part)
+                                 for part in (static_b, carry_b, xs_b)))
+        if len(launches_in) > 2:
+            del launches_in[1]  # keep the first and the latest
+        return orig_batched(static_b, carry_b, xs_b)
+
+    try:
+        server.start()
+        for i in range(N_NODES):
+            n = mock.node()
+            n.id = f"{seed:08d}-0000-4000-8000-{i:012d}"
+            n.name = f"bench-{i}"
+            n.node_resources.cpu_shares = int(rng.choice([4000, 8000, 16000]))
+            n.node_resources.memory_mb = int(rng.choice([8192, 16384, 32768]))
+            n.compute_class()
+            server.raft_apply(NODE_REGISTER, n)
+        jobs = c1m_mixed_jobs(mock, structs, SERVER_PLACEMENTS)
+        expected = sum(j.task_groups[0].count for j in jobs)
+        for i in range(SERVER_WORKERS):
+            w = Worker(server, i)
+            server.workers.append(w)
+            w.start()
+        kernels.reset_launch_counts()
+        metrics.incr_counter, kernels.place_scan_batched = count, capture
+        phases.enable()
+        try:
+            t0 = phases.now()
+            wall0 = time.perf_counter()
+            for job in jobs:
+                server.register_job(job)
+            deadline = time.monotonic() + 420
+            state = server.fsm.state
+            while state.count_allocs_desired_run() < expected and time.monotonic() < deadline:
+                time.sleep(0.02)
+            wall_s = time.perf_counter() - wall0
+            placed = state.count_allocs_desired_run()
+            drained = server.drain_evals(60.0)
+            shares = phases.wall_shares(t0, phases.now())
+        finally:
+            metrics.incr_counter, kernels.place_scan_batched = orig_incr, orig_batched
+            phases.disable()
+        launches = dict(kernels.LAUNCHES)
+        stats = dict(server.device_batcher.stats)
+        profile = server.device_batcher.dispatch_profile()
+        if placed != expected or not drained:
+            raise AssertionError(f"server {arm}: {placed} of {expected} placements committed, "
+                                 f"broker drained: {drained}")
+        per_job = {j.id: 0 for j in jobs}
+        by_node = {}
+        for a in state.allocs():
+            if a.desired_status == structs.ALLOC_DESIRED_RUN and not a.terminal_status():
+                per_job[a.job_id] += 1
+                by_node.setdefault(a.node_id, []).append(a)
+        short = [j.id for j in jobs if per_job[j.id] != j.task_groups[0].count]
+        if short:
+            raise AssertionError(f"server {arm}: jobs not fully placed in the FSM: {short[:5]}")
+        over = [n.name for n in state.nodes()
+                if not allocs_fit(n, by_node.get(n.id, []))[0]]
+        if over:
+            raise AssertionError(f"server {arm}: {len(over)} nodes overcommitted, e.g. {over[:3]}")
+        unported = counted.count("nomad.tpu_engine.unported")
+        fallback = counted.count("nomad.tpu_engine.fallback")
+        kernel = "place_scan" if deterministic else "place_scan_f32"
+        other = "place_scan_f32" if deterministic else "place_scan"
+        mean_batch = stats["evals"] / max(stats["dispatches"], 1)
+        if unported or fallback or launches[kernel] < 1 or launches[other] or mean_batch <= 1.0:
+            raise AssertionError(
+                f"server {arm}: unported={unported} fallback={fallback} launches={launches} "
+                f"mean eval batch={mean_batch}")
+        rec = {"arm": arm, "placements": placed, "jobs": len(jobs), "wall_s": wall_s,
+               "placements_per_s": placed / wall_s, "launches": launches,
+               "evals_handled": counted.count("nomad.tpu_engine.handled"),
+               "unported": unported, "fallback": fallback, "mean_eval_batch": mean_batch,
+               "batcher": stats, "dispatch_profile": profile, "phases_s": shares,
+               "nodes_checked": len(state.nodes())}
+        return rec, list(launches_in)
+    finally:
+        server.stop()
+
+
 def c1m_jobs(pkg_mock, structs):
     """bench.py c1m_mixed_jobs templates 0 (service, spread + affinity),
     10 (service), 28 (batch), then 10 again with its cpu raised by 1."""
-    cpus, mems = [8, 12, 16, 20], [16, 24, 32, 48]
-
-    def mk(kind, cpu, mem, count, stanzas, job_id):
-        j = pkg_mock.job() if kind == "service" else pkg_mock.batch_job()
-        j.id = job_id
-        tg = j.task_groups[0]
-        tg.count = count
-        tg.ephemeral_disk.size_mb = 50
-        tg.tasks[0].resources = structs.Resources(cpu=cpu, memory_mb=mem)
-        if stanzas:
-            tg.spreads = [structs.Spread(
-                attribute="${node.datacenter}", weight=50,
-                spread_target=[structs.SpreadTarget(value="dc1", percent=100)])]
-            tg.affinities = [structs.Affinity(
-                ltarget="${attr.kernel.name}", rtarget="linux", operand="=", weight=50)]
-        return j
-
-    t0 = mk("service", cpus[0], mems[0], 900, True, "c1m-0")
-    t10 = mk("service", cpus[10 % 4], mems[(10 // 4) % 4], 950, False, "c1m-10")
-    t28 = mk("batch", cpus[0], mems[0], 950, False, "c1m-28")
+    templates = c1m_templates()
+    t0, t10, t28 = (c1m_job(pkg_mock, structs, templates[t], f"c1m-{t}", templates[t]["count"])
+                    for t in (0, 10, 28))
     t10b = copy.deepcopy(t10)
     t10b.task_groups[0].tasks[0].resources.cpu += 1
     return [(t0, "service"), (t10, "service"), (t28, "batch"), (t10b, "service")]
@@ -325,7 +552,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from nomad_tpu_torch.tpu import convert, engine, kernels, step
+    from nomad_tpu_torch.tpu import convert, engine, kernels, parity, step
 
     card = gpu_line()
     log(f"gpu: {card}")
@@ -340,6 +567,8 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     worst = phase_variants(kernels, step, convert, engine)
+    worst_f = phase_float_variants(kernels, step, convert, engine)
+    phase_batched(kernels, convert, engine)
 
     dev_records, captured, launches = phase_slice(kernels, args.seed)
     for rec in dev_records:
@@ -354,39 +583,84 @@ def main() -> int:
     log(f"slice total: {total_placed} placements in {total_ms:.1f} ms "
         f"({total_placed / total_ms * 1000:.1f} placements/s) on {card}")
 
-    # the main path's own kernel inputs, replayed: kernel vs plain, times, bound
-    k_times, p_times, bounds = [], [], []
+    servers = {}
+    for deterministic in (False, True):
+        rec, launch_inputs = phase_server(kernels, deterministic, args.seed)
+        servers[rec["arm"]] = (rec, launch_inputs)
+        log(f"server {rec['arm']}: {rec['placements']} placements of {rec['jobs']} jobs in "
+            f"{rec['wall_s'] * 1000:.1f} ms ({rec['placements_per_s']:.1f} placements/s) on {card}; "
+            f"launches {json.dumps(rec['launches'], sort_keys=True)}; evals handled "
+            f"{rec['evals_handled']}, unported {rec['unported']}, fallback {rec['fallback']}; "
+            f"mean eval batch {rec['mean_eval_batch']:.3f}; {rec['nodes_checked']} nodes, none "
+            f"overcommitted")
+        log(f"  batcher {json.dumps(rec['batcher'], sort_keys=True)}")
+        log(f"  dispatch_profile {json.dumps(rec['dispatch_profile'], sort_keys=True)}")
+        log(f"  phases_s {json.dumps(rec['phases_s'], sort_keys=True)}")
+
+    # the main paths' own kernel inputs, replayed: kernel vs plain, times, bound
+    def bound(nbytes, ops):
+        b_bytes, b_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations")
+
+    rows = {"place_scan": [], "place_scan_f32": []}
     for i, (n_pad, s, c, x) in enumerate(captured):
         k_out = run_kernel(kernels, n_pad, s, c, x)
         p_out, p_ms = timed_wall(lambda: run_plain(step, n_pad, s, c, x))
         worst = max(worst, compare(k_out, p_out, f"main-path eval {i}"))
         k_ms = cuda_ms(lambda: run_kernel(kernels, n_pad, s, c, x))
-        nbytes, ops = kernels.place_scan_work(s, c, x)
-        b_bytes, b_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
-        k_times.append(k_ms)
-        p_times.append(p_ms)
-        bounds.append((b_bytes, b_ops))
+        nbytes, ops = kernels.place_scan_work(s, c, x, k_out[1][3])
+        b_ms, b_by = bound(nbytes, ops)
+        rows["place_scan"].append((k_ms, p_ms, b_ms, b_by))
         log(f"main-path eval {i}: n_pad={n_pad} P={x[0].shape[0]} S={s[10].shape[1]} "
             f"aff={s[4].shape[0] > 0} evict={x[3].shape[1] > 0} equal=yes kernel_ms={k_ms:.3f} "
-            f"plain_ms={p_ms:.1f} bytes={nbytes} int_ops={ops} bound_bytes_ms={b_bytes:.6f} "
-            f"bound_ops_ms={b_ops:.6f}")
+            f"plain_ms={p_ms:.1f} bytes={nbytes} ops={ops} bound_ms={b_ms:.6f} ({b_by})")
+    for arm, (rec, launch_inputs) in servers.items():
+        kernel = "place_scan" if arm == "int" else "place_scan_f32"
+        for which, (sb, cb, xb) in zip(("first", "last"), launch_inputs):
+            k_out = kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb)
+            p_out, p_ms = timed_wall(lambda: plain_batched(step, sb, cb, xb))
+            what = f"server {arm} {which} launch"
+            for b in range(sb[0].shape[0]):
+                got = (tuple(t[b] for t in k_out[0]), tuple(y[b] for y in k_out[1]))
+                ref = (tuple(t[b] for t in p_out[0]), tuple(y[b] for y in p_out[1]))
+                if arm == "int":
+                    worst = max(worst, compare(got, ref, f"{what} eval {b}"))
+                else:
+                    worst_f = max(worst_f, parity.check_float_scan(
+                        ref, got, xb[0][b], f"{what} eval {b}")[1])
+            k_ms = cuda_ms(lambda: kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb))
+            nbytes, ops = kernels.place_scan_batched_work(sb, cb, xb, k_out[1][3])
+            b_ms, b_by = bound(nbytes, ops)
+            rows[kernel].append((k_ms, p_ms, b_ms, b_by))
+            real = int((~k_out[1][3]).any(dim=1).sum())
+            log(f"{what}: B={sb[0].shape[0]} (evals with work {real}) n_pad={sb[0].shape[1]} "
+                f"P={xb[0].shape[1]} equal=yes kernel_ms={k_ms:.3f} plain_ms={p_ms:.1f} "
+                f"bytes={nbytes} ops={ops} bound_ms={b_ms:.6f} ({b_by})")
+
     mean = lambda v: sum(v) / len(v)  # noqa: E731
-    b_bytes = mean([b for b, _ in bounds])
-    b_ops = mean([o for _, o in bounds])
-    result = {"kernels": [{
-        "name": "place_scan",
-        "route": "cuda",
-        "source": "nomad_tpu_torch/tpu/csrc/place_scan.cu",
-        "replaces": "nomad_tpu/tpu/engine.py:213",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": mean(k_times),
-        "plain_ms": mean(p_times),
-        "bound_ms": max(b_bytes, b_ops),
-        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-        "library_ms": None,
-        "matched": True,
-    }]}
+    main_launches = {
+        "place_scan": launches + servers["int"][0]["launches"]["place_scan"],
+        "place_scan_f32": servers["float"][0]["launches"]["place_scan_f32"],
+    }
+    entries = []
+    for name, err in (("place_scan", worst), ("place_scan_f32", worst_f)):
+        r = rows[name]
+        b_ms = mean([x[2] for x in r])
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "nomad_tpu_torch/tpu/csrc/place_scan.cu",
+            "replaces": ("nomad_tpu/tpu/engine.py:213" if name == "place_scan"
+                         else "nomad_tpu/tpu/engine.py:575"),
+            "launches": main_launches[name],
+            "max_abs_err": err,
+            "ms": mean([x[0] for x in r]),
+            "plain_ms": mean([x[1] for x in r]),
+            "bound_ms": b_ms,
+            "bound_by": r[0][3],
+            "library_ms": None,
+        })
+    result = {"kernels": entries}
     log(json.dumps(result))
     log(f"card: {card}")
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """nomad_tpu_torch — the PyTorch/CUDA port of ``nomad_tpu``.
 
 A second package beside the JAX one. The host layers it needs
-(structs, state store, scheduler, mock fixtures, the numpy encoders) are
-copies of ``nomad_tpu``'s modules at the same relative paths; the
+(structs, state store, scheduler, server, pipeline, mock fixtures, the
+numpy encoders) are copies of ``nomad_tpu``'s modules at the same
+relative paths; the
 placement engine's device programs are hand-written CUDA kernels for
 Hopper (``tpu/csrc/``), each with a plain PyTorch version beside it
 (``tpu/step.py``). The package imports ``torch`` and never ``jax`` or

@@ -3,27 +3,28 @@
 Host code of ``nomad_tpu/tpu/engine.py`` ``TpuPlacementEngine`` needed
 for generic (service/batch) evals, around the port's placement scan:
 ``encode_eval`` turns the eval into dense numpy arrays (the encoders of
-``encode.py``, the encode cache with its single-flight claim), and
-``run_scan`` runs them through ``kernels.place_scan`` on the engine's
-device: the hand-written CUDA kernel on ``cuda``, its plain PyTorch
-version on ``cpu``. ``_apply_results`` / ``_apply_results_dense`` turn
-the chosen nodes into the Plan, as in the JAX engine.
+``encode.py``, the encode cache with its single-flight claim) in the
+eval's arm: int32 when the scheduler is deterministic, float32
+otherwise (the server's default). ``compute_placements`` hands them to
+the server's ``DeviceBatcher`` (``batcher.py``: one
+``kernels.place_scan_batched`` launch for up to ``device_batch`` evals)
+when the scheduler's planner has one, else ``run_scan_single`` runs
+them through ``kernels.place_scan``; on ``cuda`` that is the
+hand-written CUDA kernel, on ``cpu`` its plain PyTorch version.
+``_apply_results`` / ``_apply_results_dense`` turn the chosen nodes into
+the Plan, as in the JAX engine.
 
-Only the exact-integer arm of the scan is ported. An encode this engine
-cannot run yet takes the same gate the JAX engine uses for unsupported
-features (host placement, ``NotImplemented``) and is counted under
-``nomad.tpu_engine.unported`` with its reason:
-
-  * ``float_arm``   a non-deterministic eval (the float32 arm of the
-                    step, which comes with the server slice);
-  * ``preemption``  a service/batch eval with preemption enabled by the
-                    scheduler configuration (it would carry candidate
-                    tables).
+An encode this engine cannot run yet takes the same gate the JAX engine
+uses for unsupported features (host placement, ``NotImplemented``) and
+is counted under ``nomad.tpu_engine.unported`` with its reason:
+``preemption``, a service/batch eval with preemption enabled by the
+scheduler configuration (it would carry candidate tables).
 
 Unlike the JAX engine, a failed kernel build or launch is not caught:
-it raises out of the scheduler's ``process()``. The chunked tier, the
-forced-node (system) kernel, the device batcher and parity sampling are
-later slices.
+it raises out of the scheduler's ``process()`` (the server's worker then
+nacks the eval back to the broker); nothing is placed on the host
+instead. The chunked tier, the forced-node (system) kernel and parity
+sampling are later slices.
 """
 from __future__ import annotations
 
@@ -46,6 +47,11 @@ from ..structs.structs import (
 from ..utils.hostwork import HOST_WORK_SEM as _HOST_WORK_SEM
 from . import kernels
 from .convert import DeviceLike, resolve_device, scan_inputs_to_torch, to_numpy
+
+# Partial OCC retries below device_min_placements still ride the device
+# when the batcher has already run a batch (see compute_placements) —
+# but only above this floor; 1-2 placement stragglers stay on the host.
+RETRY_DEVICE_FLOOR = 4
 from .encode import (
     DIM_CPU,
     DIM_MBITS,
@@ -69,12 +75,12 @@ class EncodedEval:
     __slots__ = (
         "n_real", "n_pad", "g", "s", "v", "p", "dtype",
         "static", "carry", "xs",
-        "missing_list", "nodes", "table", "start_ns", "dense_ok",
+        "missing_list", "nodes", "table", "start_ns", "dense_ok", "pre_allocs",
     )
 
     def __init__(self, *, n_real, n_pad, g, s, v, p, dtype,
                  static, carry, xs, missing_list, nodes, table, start_ns,
-                 dense_ok=False):
+                 dense_ok=False, pre_allocs=None):
         self.n_real = n_real
         self.n_pad = n_pad
         self.g = g
@@ -93,6 +99,9 @@ class EncodedEval:
         # path (fresh, no networks/devices/canaries): results stay as
         # arrays end to end (structs.DenseTGPlacements)
         self.dense_ok = dense_ok
+        # preemption candidate allocs (JAX engine); None here: the port
+        # gates preempting evals before encode
+        self.pre_allocs = pre_allocs
 
 
 def _no_preempt_arrays(n_pad):
@@ -253,35 +262,89 @@ class TorchPlacementEngine:
         return eng
 
     def compute_placements(self, sched, destructive: List, place: List):
-        """Run the eval's whole placement list through one scan.
+        """Run the eval's whole placement list through the placement scan.
 
-        Returns True when handled, NotImplemented when the encode takes
-        the unsupported/unported gate (the host iterator stack places
-        the eval). Errors of the kernel's build or launch propagate."""
-        from ..trace import lifecycle as _tlc
+        Returns True when handled, NotImplemented when the eval is too
+        small for the device or the encode takes the unsupported/unported
+        gate (the host iterator stack places the eval). When the
+        scheduler's planner carries a ``device_batcher`` (the server's
+        workers do), the encoded eval is submitted there so concurrent
+        evals share ONE batched launch; otherwise it runs as a
+        single-eval scan. Errors of the kernel's build or launch
+        propagate (engine.py:1420-1556 without its host fallback)."""
         from ..utils import metrics as _metrics
+
+        # Small evals don't amortize a device dispatch: the host stack
+        # places them like the reference's per-placement iterators.
+        # Threshold 0 = always use the device; the server sets it.
+        n_min = getattr(sched, "device_min_placements", 0)
+        if n_min and len(destructive) + len(place) < n_min:
+            # A partial OCC retry (the tail of a plan-rejected eval) rides
+            # the device when the batcher has completed a batch and the
+            # retry isn't trivially small.
+            batcher = getattr(sched.planner, "device_batcher", None)
+            total = len(destructive) + len(place)
+            if (
+                batcher is None
+                or total < RETRY_DEVICE_FLOOR
+                or not batcher.has_warmed()
+            ):
+                _metrics.incr_counter("nomad.tpu_engine.small_eval_host")
+                return NotImplemented
+            _metrics.incr_counter("nomad.tpu_engine.small_eval_device_retry")
+
+        from ..trace import lifecycle as _tlc
         from ..utils import phases as _phases
 
         wave_id = sched.eval.id
-        t0 = _metrics.now()
-        with _HOST_WORK_SEM:
-            t1 = _metrics.now()
-            with _phases.track("encode"), _tlc.pipeline_stage("encode", wave_id):
-                enc = self.encode_eval(sched, destructive, place)
-            _metrics.measure_since("nomad.tpu_engine.encode_work", t1)
-        _metrics.measure_since("nomad.tpu_engine.encode", t0)
-        if enc is NotImplemented:
-            return NotImplemented
-        if enc is True:
-            return True
-        t0 = _metrics.now()
-        with _phases.track("device_wait"), _tlc.pipeline_stage("dispatch", wave_id):
-            chosen, scores, pulls, skipped_steps = self.run_scan(enc)
+        batcher = getattr(sched.planner, "device_batcher", None)
+        # Demand announcement: tell the batcher an encode destined for it
+        # is in flight BEFORE the encode starts, so the gather window
+        # stays open for this eval's cohort. Balanced in the finally / by
+        # run(expected=True) on every path out of this function.
+        expected_held = False
+        if batcher is not None:
+            batcher.expect()
+            expected_held = True
+        try:
+            t0 = _metrics.now()
+            with _HOST_WORK_SEM:
+                t1 = _metrics.now()
+                with _phases.track("encode"), _tlc.pipeline_stage("encode", wave_id):
+                    enc = self.encode_eval(sched, destructive, place)
+                _metrics.measure_since("nomad.tpu_engine.encode_work", t1)
+            _metrics.measure_since("nomad.tpu_engine.encode", t0)
+            if enc is NotImplemented:
+                return NotImplemented
+            if enc is True:
+                return True
+            self._pipeline_remember(sched, enc)
+            t0 = _metrics.now()
+            try:
+                with _phases.track("device_wait"), \
+                        _tlc.pipeline_stage("dispatch", wave_id):
+                    if batcher is not None:
+                        expected_held = False  # run() consumes the token
+                        chosen, scores, pulls, skipped_steps, _evict = batcher.run(
+                            enc, expected=True)
+                    else:
+                        chosen, scores, pulls, skipped_steps, _evict = (
+                            self.run_scan_single(enc))
+            except BaseException:
+                # the launch failed: the error reaches the worker, which
+                # nacks the eval; the remembered encode must not strand
+                self._pipeline_forget(sched)
+                raise
+        finally:
+            if expected_held:
+                batcher.cancel_expected()
         _metrics.measure_since("nomad.tpu_engine.device_wait", t0)
         t0 = _metrics.now()
         with _HOST_WORK_SEM:
             t1 = _metrics.now()
             with _phases.track("apply"):
+                chosen = np.asarray(chosen)
+                skipped_steps = np.asarray(skipped_steps)
                 if enc.dense_ok and (chosen >= 0).all() and not skipped_steps.any():
                     # every placement succeeded and qualifies: results stay
                     # dense (no per-alloc objects) all the way to the FSM
@@ -295,18 +358,48 @@ class TorchPlacementEngine:
         _metrics.measure_since("nomad.tpu_engine.apply", t0)
         return True
 
-    def run_scan(self, enc: "EncodedEval"):
+    def run_scan_single(self, enc: "EncodedEval"):
         """Run one encoded eval through ``kernels.place_scan`` on the
-        engine's device; returns numpy (chosen, scores, pulls, skipped)."""
+        engine's device; returns numpy (chosen, scores, pulls, skipped,
+        evict)."""
         from ..utils import phases as _phases
 
         static, carry, xs = scan_inputs_to_torch(enc.static, enc.carry, enc.xs,
                                                  self.device)
         with _phases.track("device"):
-            _carry, (chosen, scores, pulls, skipped, _evict) = kernels.place_scan(
-                enc.n_pad, static, carry, xs)
-            out = to_numpy((chosen, scores, pulls, skipped))
+            _carry, ys = kernels.place_scan(enc.n_pad, static, carry, xs)
+            out = to_numpy(ys)
         return out
+
+    @staticmethod
+    def _pipeline_remember(sched, enc: "EncodedEval") -> None:
+        """Hand this wave's encode to the pipeline's re-dispatch registry
+        (pipeline/redispatch.py) before the device dispatch: on a partial
+        OCC commit, the async applier re-enters the device stage from the
+        remembered encode instead of re-running snapshot/encode. No-op
+        outside the pipelined server."""
+        pipe = getattr(sched.planner, "pipeline", None)
+        if pipe is None:
+            return
+        try:
+            pipe.remember_wave(
+                sched.eval.id, enc, sched.job,
+                getattr(sched.ctx.state, "node_epoch", -1),
+            )
+        except Exception:  # noqa: BLE001 — observability hook, never fatal
+            logger.debug("pipeline remember_wave failed", exc_info=True)
+
+    @staticmethod
+    def _pipeline_forget(sched) -> None:
+        """Drop a remembered encode when the wave's launch failed — the
+        registry entry would otherwise strand until the eval acks."""
+        pipe = getattr(sched.planner, "pipeline", None)
+        if pipe is None:
+            return
+        try:
+            pipe.registry.forget(sched.eval.id)
+        except Exception:  # noqa: BLE001
+            logger.debug("pipeline forget failed", exc_info=True)
 
     def encode_eval(self, sched, destructive: List, place: List):
         """Encode one eval's placement problem into dense numpy arrays.
@@ -352,11 +445,9 @@ class TorchPlacementEngine:
             _metrics.incr_counter(f"nomad.tpu_engine.unported.{reason}")
             return NotImplemented
 
-        # Gates of what the port cannot run yet (module doc), before any
-        # claim or encode work.
-        if not ctx.deterministic:
-            return unported("float_arm")
-        # Device-side preemption: the SAME switch the host stack consults
+        # Gate of what the port cannot run yet (module doc), before any
+        # claim or encode work. Device-side preemption: the SAME switch
+        # the host stack consults
         # (generic_sched.get_select_options).
         from ..scheduler.preemption import preemption_enabled
 
@@ -460,7 +551,8 @@ class TorchPlacementEngine:
                         from .encode import epoch_usage_arrays
 
                         used0, e_base0 = epoch_usage_arrays(
-                            ctx, fleet, hit.n_pad, True, hit.dtype,
+                            ctx, fleet, hit.n_pad,
+                            hit.dtype == np.int32, hit.dtype,
                         )
                         carry = list(hit.carry)
                         carry[0] = used0
@@ -518,12 +610,15 @@ class TorchPlacementEngine:
         num_dims = table.totals.shape[1]    # 4 + the job's device dims
         start = _time.monotonic_ns()
 
-        # The exact INTEGER spec of intscore.py: int32 arrays, int64
-        # score60 selection, bit-exact on every backend.
-        fdtype = np.int32
-        reason = _int_spec_gate_reason(table, tg_specs, job)
-        if reason is not None:
-            return fallback(reason)
+        # Deterministic (parity) mode: the exact INTEGER spec of
+        # intscore.py — int32 arrays, int64 score60 selection, bit-exact
+        # on every backend. Non-deterministic: float32 throughput mode.
+        int_mode = bool(ctx.deterministic)
+        fdtype = np.int32 if int_mode else np.float32
+        if int_mode:
+            reason = _int_spec_gate_reason(table, tg_specs, job)
+            if reason is not None:
+                return fallback(reason)
         _metrics.incr_counter("nomad.tpu_engine.handled")
 
         n_pad = _round_up(max(n_real, 1))
@@ -539,13 +634,16 @@ class TorchPlacementEngine:
         used0 = np.zeros((n_pad, num_dims), fdtype)
         used0[:n_real] = table.used
 
-        # Q27 incremental exponentials: e_base0 per node from the
-        # encode-time chain; e_ask static ask factors per TG
+        # Q27 incremental exponentials (int mode): e_base0 per node from
+        # the encode-time chain; e_ask static ask factors per TG
         from .intscore import E27_ONE, e27_np, e27_py, pack_feat_planes, xq_np, xq_py
 
         node_c2 = (totals[:, :2] - reserved[:, :2]).astype(np.int64)  # [N,2]
-        free0 = node_c2 - used0[:, :2] - reserved[:, :2]
-        e_base0 = e27_np(xq_np(free0, node_c2)).astype(np.int32)
+        if int_mode:
+            free0 = node_c2 - used0[:, :2] - reserved[:, :2]
+            e_base0 = e27_np(xq_np(free0, node_c2)).astype(np.int32)
+        else:
+            e_base0 = np.zeros((0, 2), np.int32)
         tg_counts0 = np.zeros((g_count, n_pad), np.int32)
         tg_counts0[:, :n_real] = table.tg_counts
         job_counts0 = np.zeros(n_pad, np.int32)
@@ -569,25 +667,29 @@ class TorchPlacementEngine:
         sum_spread_weights = np.zeros(g_count, fdtype)
         spread_counts0 = np.zeros((g_count, sv, vv), fdtype)
         spread_entry0 = np.zeros((g_count, sv, vv), bool)
-        e_ask = np.full((g_count, n_pad, 2), E27_ONE, np.int32)
+        if int_mode:
+            e_ask = np.full((g_count, n_pad, 2), E27_ONE, np.int32)
+        else:
+            e_ask = np.zeros((0, 0, 2), np.int32)
 
         # e_ask rows depend only on (fleet capacities, the TG's cpu/mem
         # ask): cache them on the fleet entry
         e_ask_cache = None if fleet is None else fleet.setdefault("e_ask", {})
         for gi, spec in specs_by_gi.items():
             asks[gi] = spec.ask
-            key = (n_pad, int(spec.ask[0]), int(spec.ask[1]))
-            row = None if e_ask_cache is None else e_ask_cache.get(key)
-            if row is None:
-                row = np.empty((n_pad, 2), np.int32)
-                for d in (0, 1):
-                    row[:, d] = e27_np(
-                        xq_np(np.full(n_pad, -int(spec.ask[d]), np.int64),
-                              node_c2[:, d])
-                    ).astype(np.int32)
-                if e_ask_cache is not None and len(e_ask_cache) < 64:
-                    e_ask_cache[key] = row
-            e_ask[gi] = row
+            if int_mode:
+                key = (n_pad, int(spec.ask[0]), int(spec.ask[1]))
+                row = None if e_ask_cache is None else e_ask_cache.get(key)
+                if row is None:
+                    row = np.empty((n_pad, 2), np.int32)
+                    for d in (0, 1):
+                        row[:, d] = e27_np(
+                            xq_np(np.full(n_pad, -int(spec.ask[d]), np.int64),
+                                  node_c2[:, d])
+                        ).astype(np.int32)
+                    if e_ask_cache is not None and len(e_ask_cache) < 64:
+                        e_ask_cache[key] = row
+                e_ask[gi] = row
             feas[gi, :n_real] = spec.feasible
             aff_score[gi, :n_real] = spec.affinity_score
             aff_present[gi, :n_real] = spec.affinity_present
@@ -619,8 +721,9 @@ class TorchPlacementEngine:
         evict_tg = np.full(p, -1, np.int32)
         limit_p = np.zeros(p, np.int32)
         sum_sw_p = np.zeros(p, fdtype)
-        ev_factor = np.full((p, 2), E27_ONE, np.int32)
-        rev_factor = np.full((p, 2), E27_ONE, np.int32)
+        e27one = E27_ONE if int_mode else 1
+        ev_factor = np.full((p, 2), e27one, np.int32)
+        rev_factor = np.full((p, 2), e27one, np.int32)
 
         # Sticky limit widening + cross-TG spread-weight accumulation,
         # replicating the shared SpreadIterator/LimitIterator state in the
@@ -682,13 +785,14 @@ class TorchPlacementEngine:
                     evict_res[pi, DIM_MBITS] = mb
                     if prev.job_id == job.id:
                         evict_tg[pi] = tg_name_to_gi.get(prev.task_group, -1)
-                    # eviction/revert Q27 factors (evicted node known at
-                    # encode time; spec: e27(±evict_res/cap))
-                    for d in (0, 1):
-                        er = int(evict_res[pi, d])
-                        nc = int(node_c2[idx, d])
-                        ev_factor[pi, d] = e27_py(xq_py(er, nc))
-                        rev_factor[pi, d] = e27_py(xq_py(-er, nc))
+                    if int_mode:
+                        # eviction/revert Q27 factors (evicted node known
+                        # at encode time; spec: e27(±evict_res/cap))
+                        for d in (0, 1):
+                            er = int(evict_res[pi, d])
+                            nc = int(node_c2[idx, d])
+                            ev_factor[pi, d] = e27_py(xq_py(er, nc))
+                            rev_factor[pi, d] = e27_py(xq_py(-er, nc))
 
         # shape specialization: absent features collapse to zero axes, so
         # the kernel and its plain version skip their work
@@ -704,11 +808,12 @@ class TorchPlacementEngine:
             evict_res = evict_res[:, :0]
             ev_factor = ev_factor[:, :0]
             rev_factor = rev_factor[:, :0]
-        # fold reserved into totals: the E factors above were computed
-        # from the split, and the fits check is identical on the netted
-        # capacities
-        totals = totals - reserved
-        reserved = np.zeros((0, num_dims), fdtype)
+        if int_mode:
+            # fold reserved into totals: the E factors above were computed
+            # from the split, and the fits check is identical on the
+            # netted capacities
+            totals = totals - reserved
+            reserved = np.zeros((0, num_dims), fdtype)
 
         # distinct_property encoding (zero-D when absent). Pad the node
         # axis: padded nodes keep the MISSING bucket (v-1) and are
@@ -764,8 +869,9 @@ class TorchPlacementEngine:
             start_ns=start, dense_ok=dense_ok,
         )
         if enc_cache is not None and cache_key is not None:
-            # arrays are read-only downstream (run_scan copies them to the
-            # device; apply only reads)
+            # arrays are read-only downstream (the batcher pads into fresh
+            # buffers, run_scan_single copies them to the device; apply
+            # only reads)
             if len(enc_cache) >= 32:
                 enc_cache.pop(next(iter(enc_cache)), None)
             enc_cache[cache_key] = (cur_epoch, enc)
@@ -778,10 +884,13 @@ class TorchPlacementEngine:
 
     @staticmethod
     def _scores_to_float(scores) -> np.ndarray:
-        """Display-float conversion of the int spec's score60s."""
-        from .intscore import TERM_ONE
+        """Display-float conversion (int mode carries score60s)."""
+        scores = np.asarray(scores)
+        if scores.dtype.kind == "i":
+            from .intscore import TERM_ONE
 
-        return np.asarray(scores, np.float64) / (60.0 * TERM_ONE)
+            return np.asarray(scores, np.float64) / (60.0 * TERM_ONE)
+        return np.asarray(scores, np.float64)
 
     @staticmethod
     def _dense_block(job, tg, eval_id, node_idxs, nodes, names, scores_f,
@@ -912,9 +1021,12 @@ class TorchPlacementEngine:
                     sched.plan.pop_update(prev_allocation)
                 continue
 
-            # int-spec score60 -> display float (metrics only; never used
-            # in selection comparisons)
-            score_f = score60_to_float(scores[pi])
+            if np.asarray(scores).dtype.kind == "i":
+                # int-spec score60 -> display float (metrics only; never
+                # used in selection comparisons)
+                score_f = score60_to_float(scores[pi])
+            else:
+                score_f = float(scores[pi])
             metrics.score_node(node, "binpack", score_f)
             metrics.score_node(node, "normalized-score", score_f)
             metrics.populate_score_meta_data()
@@ -1090,10 +1202,11 @@ SCAN_VARIANTS = ("s0", "s1", "even", "affinity", "evict", "penalty",
 
 
 def example_scan_variant(variant: str, n_nodes: int = 64, n_tgs: int = 2,
-                         n_placements: int = 16, seed: int = 0):
-    """``example_scan_inputs(dtype=np.int32)`` with specialization axes of
-    the step switched on, for holding the kernel and its plain version
-    against the JAX scan on every branch a generic eval takes:
+                         n_placements: int = 16, seed: int = 0, dtype=np.int32):
+    """``example_scan_inputs`` with specialization axes of the step
+    switched on, for holding the kernel and its plain version against
+    the JAX scan on every branch a generic eval takes, in the int arm
+    (``dtype=np.int32``, the default) or the float arm (``np.float32``):
 
       s0 / s1            no spread axis / one targeted spread
       even               one even spread (no targets), counts pre-seeded
@@ -1113,6 +1226,10 @@ def example_scan_variant(variant: str, n_nodes: int = 64, n_tgs: int = 2,
 
     if variant not in SCAN_VARIANTS:
         raise ValueError(f"unknown scan variant {variant!r}")
+    dtype = np.dtype(dtype)
+    if dtype not in (np.dtype(np.int32), np.dtype(np.float32)):
+        raise ValueError(f"scan variants are int32 or float32, not {dtype}")
+    int_mode = dtype.kind == "i"
     if variant == "all":
         on = set(SCAN_VARIANTS[2:-2]) | {"reserved"}
     elif variant == "overcommit":
@@ -1121,7 +1238,7 @@ def example_scan_variant(variant: str, n_nodes: int = 64, n_tgs: int = 2,
         on = {variant}
     n_spreads = 0 if variant == "s0" else (2 if variant == "all" else 1)
     n_pad, static, carry, xs = example_scan_inputs(
-        n_nodes, n_tgs, n_placements, n_spreads=n_spreads, dtype=np.int32,
+        n_nodes, n_tgs, n_placements, n_spreads=n_spreads, dtype=dtype,
         seed=seed)
     static, carry, xs = list(static), list(carry), list(xs)
     rng = np.random.default_rng(seed + 7919)
@@ -1132,6 +1249,7 @@ def example_scan_variant(variant: str, n_nodes: int = 64, n_tgs: int = 2,
 
     if "overcommit" in on:
         static[2] = static[2] * 30
+    if "overcommit" in on and int_mode:
         static[16] = np.empty_like(static[16])
         node_c2 = totals[:, :2].astype(np.int64)
         for gi in range(g):
@@ -1146,17 +1264,23 @@ def example_scan_variant(variant: str, n_nodes: int = 64, n_tgs: int = 2,
         vocab = static[10].shape[-1] - 1
         for gi in rows:
             static[12][gi, 0] = False
-            counts = rng.integers(0, 4, vocab).astype(np.int32)
+            counts = rng.integers(0, 4, vocab).astype(carry[3].dtype)
             carry[3][gi, 0, :vocab] = counts
             carry[4][gi, 0, :vocab] = (counts > 0) | (rng.random(vocab) < 0.1)
     if "affinity" in on:
         aff_present = np.zeros((g, n_pad), bool)
         aff_present[:, :n_nodes] = rng.random((g, n_nodes)) < 0.5
-        choices = np.array([-TERM_ONE, -TERM_ONE // 3, TERM_ONE // 2, TERM_ONE], np.int64)
+        if int_mode:
+            choices = np.array([-TERM_ONE, -TERM_ONE // 3, TERM_ONE // 2, TERM_ONE],
+                               np.int64)
+        else:
+            choices = np.array([-1.0, -1.0 / 3.0, 0.5, 1.0], np.float32)
         aff_score = np.where(aff_present, rng.choice(choices, (g, n_pad)), 0)
-        static[4] = aff_score.astype(np.int32)
+        static[4] = aff_score.astype(dtype)
         static[3] = pack_feat_planes(feas, aff_present)
     if "reserved" in on:
+        # a reserved plane beside the folded totals (int arm), or in
+        # place of the float arm's own
         reserved = np.zeros_like(totals)
         reserved[:n_nodes, 0] = 50
         reserved[:n_nodes, 1] = 128
@@ -1171,7 +1295,7 @@ def example_scan_variant(variant: str, n_nodes: int = 64, n_tgs: int = 2,
     if "evict" in on:
         d_dims = totals.shape[1]
         evict_node = np.full(p, -1, np.int32)
-        evict_res = np.zeros((p, d_dims), np.int32)
+        evict_res = np.zeros((p, d_dims), dtype)
         evict_tg = np.full(p, -1, np.int32)
         used, tg_counts, job_counts = carry[0], carry[1], carry[2]
         spread_vids, spread_active = static[9], static[13]
@@ -1192,11 +1316,14 @@ def example_scan_variant(variant: str, n_nodes: int = 64, n_tgs: int = 2,
                     vid = spread_vids[gi, s, node]
                     carry[3][gi, s, vid] += 1
                     carry[4][gi, s, vid] = True
+        # the float arm carries no exponentials: its factors are inert
+        # ones, as encode_eval writes them
+        ev_factor = np.full((p, 2), E27_ONE if int_mode else 1, np.int32)
+        rev_factor = ev_factor.copy()
         node_c2 = totals[:, :2].astype(np.int64)
-        carry[7] = e27_np(xq_np(node_c2 - used[:, :2], node_c2)).astype(np.int32)
-        ev_factor = np.full((p, 2), E27_ONE, np.int32)
-        rev_factor = np.full((p, 2), E27_ONE, np.int32)
-        for pi in np.nonzero(evict_node >= 0)[0]:
+        if int_mode:
+            carry[7] = e27_np(xq_np(node_c2 - used[:, :2], node_c2)).astype(np.int32)
+        for pi in np.nonzero(evict_node >= 0)[0] if int_mode else ():
             for d in (0, 1):
                 er = int(evict_res[pi, d])
                 nc = int(node_c2[evict_node[pi], d])

@@ -1,9 +1,11 @@
 """Build, bind and launch the port's hand-written CUDA kernels.
 
-``place_scan`` is the placement scan, int arm (``csrc/place_scan.cu``):
-it replaces the JAX package's ``_make_step`` / ``_build_place_scan`` /
+``place_scan`` is the placement scan (``csrc/place_scan.cu``): it
+replaces the JAX package's ``_make_step`` / ``_build_place_scan`` /
 ``_build_batched_scan`` (``nomad_tpu/tpu/engine.py:213``, ``:869``,
-``:1000``). Each source under ``csrc/`` is compiled at first use with
+``:1000``). The dtype of ``totals`` picks the arm: int32 launches the
+exact-integer kernel (counted as ``place_scan``), float32 the float
+kernel (counted as ``place_scan_f32``). Each source under ``csrc/`` is compiled at first use with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
 (``_build/``, keyed by the source's hash) and loaded with ``ctypes``;
 every pointer and the stream go across as ``c_void_p``.
@@ -36,9 +38,14 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {"place_scan": CSRC / "place_scan.cu"}
+#: kernel name -> (source library, C entry point)
+KERNELS = {
+    "place_scan": ("place_scan", "place_scan_launch"),
+    "place_scan_f32": ("place_scan", "place_scan_f32_launch"),
+}
 
 #: kernel launches since the last reset, by kernel name
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 #: per kernel: build seconds and the compiler's register/shared-memory
 #: report (``-Xptxas -v``), filled when a build runs in this process
 BUILD_INFO: Dict[str, Dict[str, object]] = {}
@@ -138,8 +145,9 @@ class ScanArgs(ctypes.Structure):
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     if name == "place_scan":
-        lib.place_scan_launch.argtypes = [ctypes.POINTER(ScanArgs), ctypes.c_void_p]
-        lib.place_scan_launch.restype = ctypes.c_int
+        for fn in (lib.place_scan_launch, lib.place_scan_f32_launch):
+            fn.argtypes = [ctypes.POINTER(ScanArgs), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.place_scan_error_string.argtypes = [ctypes.c_int]
         lib.place_scan_error_string.restype = ctypes.c_char_p
         lib.place_scan_args_size.argtypes = []
@@ -149,7 +157,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-I32, I64, U8, BOOL = torch.int32, torch.int64, torch.uint8, torch.bool
+I32, I64, U8, BOOL, F32 = torch.int32, torch.int64, torch.uint8, torch.bool, torch.float32
 # per-spread statistics live in dynamic shared memory, 32 bytes each,
 # within the 48 KB a launch gets without an opt-in attribute
 _MAX_SPREADS = 1024
@@ -179,9 +187,10 @@ def _check_batched(static_b, carry_b, xs_b) -> Dict[str, int]:
     dtypes the kernel reads; return the sizes and specialization flags."""
     if len(static_b) != 26 or len(carry_b) != 12 or len(xs_b) != 10:
         raise ValueError("place_scan: expected 26 static, 12 carry and 10 xs arrays")
-    if static_b[0].dtype != I32:
+    T = static_b[0].dtype
+    if T not in (I32, F32):
         raise NotImplementedError(
-            f"place_scan: only the int arm is ported (totals dtype {static_b[0].dtype})")
+            f"place_scan: the kernel has an int32 and a float32 arm (totals dtype {T})")
     m = _scan_dims(static_b, carry_b, xs_b)
     B, N, D, G, S, V, K, DP, V2, P = (m[k] for k in _INT_FIELDS[:10])
     pre_c = static_b[20].shape[2]
@@ -194,32 +203,34 @@ def _check_batched(static_b, carry_b, xs_b) -> Dict[str, int]:
     if R not in (0, N) or GA not in (0, G) or DE not in (0, D) or F not in (0, 1):
         raise ValueError("place_scan: reserved/affinity/evict/forced axes malformed")
     EV = 2 if DE else 0
+    # the float arm carries no exponentials: zero-sized e_ask / e_base
+    GE, NE = (G, N) if T == I32 else (0, 0)
     specs = [
         # static
-        ("totals", static_b[0], I32, (B, N, D)), ("reserved", static_b[1], I32, (B, R, D)),
-        ("asks", static_b[2], I32, (B, G, D)), ("feat_packed", static_b[3], U8, (B, G, N)),
-        ("aff_score", static_b[4], I32, (B, GA, N)), ("desired_counts", static_b[5], I32, (B, G)),
+        ("totals", static_b[0], T, (B, N, D)), ("reserved", static_b[1], T, (B, R, D)),
+        ("asks", static_b[2], T, (B, G, D)), ("feat_packed", static_b[3], U8, (B, G, N)),
+        ("aff_score", static_b[4], T, (B, GA, N)), ("desired_counts", static_b[5], I32, (B, G)),
         ("dh_job", static_b[6], BOOL, (B, G)), ("dh_tg", static_b[7], BOOL, (B, G)),
         ("spread_vids", static_b[9], I32, (B, G, S, N)),
-        ("spread_desired", static_b[10], I32, (B, G, S, V)),
-        ("spread_weights", static_b[11], I32, (B, G, S)),
+        ("spread_desired", static_b[10], T, (B, G, S, V)),
+        ("spread_weights", static_b[11], T, (B, G, S)),
         ("spread_has_targets", static_b[12], BOOL, (B, G, S)),
         ("spread_active", static_b[13], BOOL, (B, G, S)),
-        ("n_real", static_b[15], I32, (B,)), ("e_ask", static_b[16], I32, (B, G, N, 2)),
+        ("n_real", static_b[15], I32, (B,)), ("e_ask", static_b[16], I32, (B, GE, NE, 2)),
         ("dp_vids", static_b[17], I32, (B, DP, N)), ("dp_limit", static_b[18], I32, (B, DP)),
         ("dp_applies", static_b[19], BOOL, (B, G, DP)),
         # carry
-        ("used", carry_b[0], I32, (B, N, D)), ("tg_counts", carry_b[1], I32, (B, G, N)),
+        ("used", carry_b[0], T, (B, N, D)), ("tg_counts", carry_b[1], I32, (B, G, N)),
         ("job_counts", carry_b[2], I32, (B, N)),
-        ("spread_counts", carry_b[3], I32, (B, G, S, V)),
+        ("spread_counts", carry_b[3], T, (B, G, S, V)),
         ("spread_entry", carry_b[4], BOOL, (B, G, S, V)), ("offset", carry_b[5], I32, (B,)),
-        ("failed", carry_b[6], BOOL, (B, G)), ("e_base", carry_b[7], I32, (B, N, 2)),
+        ("failed", carry_b[6], BOOL, (B, G)), ("e_base", carry_b[7], I32, (B, NE, 2)),
         ("dp_counts", carry_b[8], I32, (B, DP, V2)),
         # per placement
         ("tg_idx", xs_b[0], I32, (B, P)), ("penalty_idx", xs_b[1], I32, (B, P, K)),
-        ("evict_node", xs_b[2], I32, (B, P)), ("evict_res", xs_b[3], I32, (B, P, DE)),
+        ("evict_node", xs_b[2], I32, (B, P)), ("evict_res", xs_b[3], T, (B, P, DE)),
         ("evict_tg", xs_b[4], I32, (B, P)), ("limit_p", xs_b[5], I32, (B, P)),
-        ("sum_sw_p", xs_b[6], I32, (B, P)), ("ev_factor", xs_b[7], I32, (B, P, EV)),
+        ("sum_sw_p", xs_b[6], T, (B, P)), ("ev_factor", xs_b[7], I32, (B, P, EV)),
         ("rev_factor", xs_b[8], I32, (B, P, EV)), ("forced_node", xs_b[9], I32, (B, P, F)),
     ]
     dev = static_b[0].device
@@ -240,11 +251,13 @@ def _launch_place_scan(static_b, carry_b, xs_b):
     m = _check_batched(static_b, carry_b, xs_b)
     dev = static_b[0].device
     B, N, P = m["B"], m["N"], m["P"]
+    float_arm = static_b[0].dtype == F32
+    score_t = F32 if float_arm else I64
     chosen = torch.empty((B, P), dtype=I32, device=dev)
-    scores = torch.empty((B, P), dtype=I64, device=dev)
+    scores = torch.empty((B, P), dtype=score_t, device=dev)
     pulls = torch.empty((B, P), dtype=I32, device=dev)
     skipped = torch.empty((B, P), dtype=BOOL, device=dev)
-    scr_final = torch.empty((B, N), dtype=I64, device=dev)
+    scr_final = torch.empty((B, N), dtype=score_t, device=dev)
     scr_flags = torch.empty((B, N), dtype=U8, device=dev)
     tensors = {
         "totals": static_b[0], "reserved": static_b[1], "asks": static_b[2],
@@ -266,15 +279,17 @@ def _launch_place_scan(static_b, carry_b, xs_b):
     }
     args = ScanArgs(**{k: m[k] for k in _INT_FIELDS},
                     **{k: tensors[k].data_ptr() for k in _PTR_FIELDS})
-    lib = _lib("place_scan")
+    name = "place_scan_f32" if float_arm else "place_scan"
+    source, entry = KERNELS[name]
+    lib = _lib(source)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.place_scan_launch(ctypes.byref(args), ctypes.c_void_p(stream))
+        err = getattr(lib, entry)(ctypes.byref(args), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
-            f"place_scan launch failed: {lib.place_scan_error_string(err).decode()}")
+            f"{name} launch failed: {lib.place_scan_error_string(err).decode()}")
     with _count_lock:
-        LAUNCHES["place_scan"] += 1
+        LAUNCHES[name] += 1
     evict = torch.zeros((B, P, 0), dtype=I32, device=dev)
     return carry_b, (chosen, scores, pulls, skipped, evict)
 
@@ -321,21 +336,39 @@ def place_scan(n_pad: int, static, carry, xs):
     return carry, tuple(y[0] for y in ys)
 
 
-def place_scan_work(static, carry, xs) -> Tuple[int, int]:
-    """(bytes, integer operations) one eval's scan needs at these inputs:
-    every input read once and every output (final carry, per-step
-    outputs) written once; operations counted per node and step from the
+def place_scan_work(static, carry, xs, skipped=None) -> Tuple[int, int]:
+    """(bytes, operations) one eval's scan needs at these inputs: every
+    input read once and every output (final carry, per-step outputs)
+    written once; operations counted per node and step from the
     kernel's pass 1 and pass 2 (about 60 fixed, 3 per capacity dim, 25
     per active spread, 8 per distinct_property constraint, 1 per penalty
-    slot), times N and P. Feeds the ``bound_ms`` of chip_smoke.py."""
+    slot, and in the float arm 40 more for its two ``powf``), times N,
+    over the steps that ran: a step the scan's output marks ``skipped``
+    (a failed task group, or a batch's padding) does no node work.
+    Feeds the ``bound_ms`` of chip_smoke.py."""
     nbytes = sum(t.numel() * t.element_size() for t in (*static, *carry, *xs))
     nbytes += sum(t.numel() * t.element_size() for t in carry)
     p = xs[0].shape[0]
-    nbytes += p * (4 + 8 + 4 + 1)
+    nbytes += p * (4 + static[0].element_size() * (2 if static[0].dtype == I32 else 1) + 4 + 1)
+    run = torch.ones(p, dtype=torch.bool) if skipped is None else ~skipped.cpu().bool()
     n, d = static[0].shape
-    active_per_g = static[13].to(torch.int64).sum(dim=-1)        # [G]
-    spreads = int(active_per_g[xs[0].to(torch.int64)].sum()) if p else 0
+    tg_run = xs[0].cpu().to(torch.int64)[run]
+    active_per_g = static[13].cpu().to(torch.int64).sum(dim=-1)  # [G]
+    spreads = int(active_per_g[tg_run].sum()) if tg_run.numel() else 0
     dp = static[17].shape[0]
     k = xs[1].shape[-1]
-    ops = n * (p * (60 + 3 * d + 8 * dp + k) + 25 * spreads)
+    per_step = 60 + 3 * d + 8 * dp + k + (40 if static[0].dtype == F32 else 0)
+    ops = n * (int(tg_run.numel()) * per_step + 25 * spreads)
+    return nbytes, ops
+
+
+def place_scan_batched_work(static_b, carry_b, xs_b, skipped_b=None) -> Tuple[int, int]:
+    """``place_scan_work`` of a K3 launch: summed over the batch's evals."""
+    nbytes = ops = 0
+    for b in range(static_b[0].shape[0]):
+        nb, op = place_scan_work(
+            tuple(t[b] for t in static_b), tuple(t[b] for t in carry_b),
+            tuple(t[b] for t in xs_b), None if skipped_b is None else skipped_b[b])
+        nbytes += nb
+        ops += op
     return nbytes, ops

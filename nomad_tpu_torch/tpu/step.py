@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the placement scan, int arm.
+"""Plain PyTorch version of the placement scan, both arms.
 
 The same program as ``nomad_tpu/tpu/engine.py`` ``_make_step`` (one
 placement over all N nodes) scanned over an eval's P placements by
@@ -10,9 +10,19 @@ Nothing on the main path calls it when the tensors are on CUDA.
 Call contract (the JAX scan's): ``place_scan(n_pad, static, carry, xs)
 -> (carry, (chosen, scores, pulls, skipped, evict))``, with the 26
 static, 12 carry and 10 per-placement arrays in the order
-``encode_eval`` builds them. Only the exact-integer arm
-(``deterministic=True``: int32 arrays, int64 score60 selection) is
-ported; every branch a generic eval takes is covered:
+``encode_eval`` builds them. The dtype of ``totals`` picks the arm:
+
+  * int32 (``deterministic=True``): the exact integer spec, int64
+    score60 selection (``engine.py:471-574``);
+  * float32 (the server's default): f32 scores from ``pow(10, free)``
+    binpack, ``-(c+1)/desired`` anti-affinity, the reschedule penalty,
+    targeted and even spread, divided by the number of terms
+    (``engine.py:575-639``). Each operation rounds on its own, in the
+    JAX program's order, and every divisor is a tensor on the inputs'
+    device (PyTorch's CUDA division by a Python scalar multiplies by
+    its reciprocal instead).
+
+Every branch a generic eval takes is covered in both arms:
 
   * eviction of the previous alloc and its revert on failure;
   * the affinity G axis present or absent;
@@ -27,10 +37,12 @@ preemption slice.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import List, Tuple
 
 import torch
 
+from .encode import DIM_CPU, DIM_MEM
 from .intscore import (
     BIG_FP,
     E27_BITS,
@@ -56,13 +68,17 @@ INT32_MAX = 2**31 - 1
 
 I32 = torch.int32
 I64 = torch.int64
+F32 = torch.float32
+#: jnp.finfo(jnp.float32).max / 16.0 (engine.py:587), the clamp of a
+#: targeted spread boost whose desired count is 0
+F32_BIG = float(torch.finfo(F32).max) / 16.0
 
 
-def _check_int_arm(static) -> None:
+def _check_arm(static) -> None:
     totals, pre_res = static[0], static[20]
-    if totals.dtype != I32:
+    if totals.dtype not in (I32, F32):
         raise NotImplementedError(
-            f"only the int arm of the scan is ported (got {totals.dtype})")
+            f"the scan has an int32 and a float32 arm (got {totals.dtype})")
     if pre_res.shape[1] > 0:
         raise NotImplementedError(
             "preemption (candidate axis C > 0) is not ported")
@@ -111,10 +127,11 @@ def _step(static, carry, x, skip_step: bool):
             if evict_tg >= 0:
                 tg_counts[ev_tg, ev_node] -= 1
                 ev_dec = spread_active[ev_tg].clone()
-            _add_vid(spread_counts[ev_tg], ev_vid, -ev_dec.to(I32))
-            e_base[ev_node] = (
-                (e_base[ev_node].to(I64) * ev_factor.to(I64)) >> E27_BITS
-            ).to(I32)
+            _add_vid(spread_counts[ev_tg], ev_vid, -ev_dec.to(spread_counts.dtype))
+            if e_base.shape[0]:
+                e_base[ev_node] = (
+                    (e_base[ev_node].to(I64) * ev_factor.to(I64)) >> E27_BITS
+                ).to(I32)
 
     # -- row selects (engine.py:335-354) ----------------------------------
     ask = asks[g]                                              # [D]
@@ -123,7 +140,7 @@ def _step(static, carry, x, skip_step: bool):
     tg_counts_g = tg_counts[g]
     desired_g = int(desired_counts[g])
     if aff_score.shape[0] == 0:
-        aff = torch.zeros(n_pad, dtype=I32, device=dev)
+        aff = torch.zeros(n_pad, dtype=totals.dtype, device=dev)
         aff_p = torch.zeros(n_pad, dtype=torch.bool, device=dev)
     else:
         aff = aff_score[g]
@@ -156,91 +173,27 @@ def _step(static, carry, x, skip_step: bool):
             (~dp_missing) & (dp_cnt_n < dp_limit[:, None]))
         feasible = feasible & dp_ok.all(dim=0)
 
-    # -- score terms, int spec (engine.py:447-574) ------------------------
+    # -- score terms (engine.py:438-639) ----------------------------------
     if penalty_idx.shape[-1] == 0:
         pmask = torch.zeros(n_pad, dtype=torch.bool, device=dev)
     else:
         pmask = (iota[:, None] == penalty_idx[None, :]).any(dim=-1)
-    anti_present = tg_counts_g > 0
-
-    vids = spread_vids[g]                                      # [S, N]
-    s_counts = spread_counts[g].clamp(min=0)                   # [S, V]
-    s_entry = spread_entry[g]
-    weights_s = spread_weights[g]
-    has_targets_s = spread_has_targets[g]
-    active_s = spread_active[g]
-    invalid_bucket = v_plus - 1
-    current = _gather_vid(s_counts, vids).to(I64)              # [S, N]
-    d64 = _gather_vid(spread_desired[g], vids).to(I64)
-    missing = vids == invalid_bucket
-    has_entries = s_entry[:, :invalid_bucket].any(dim=-1)      # [S]
-
-    ea = e_ask[g]                                              # [N, 2]
-    e_sel = (e_base.to(I64) * ea.to(I64)) >> E27_BITS
-    fit = (20 * E27_ONE - e_sel[:, 0] - e_sel[:, 1]).clamp(0, 18 * E27_ONE)
-    binpack = torch.div(fit * 4, 9, rounding_mode="floor")
-
-    rsh = RECIP_BITS - TERM_BITS
-    q_d = (1 << RECIP_BITS) // max(desired_g, 1)
-    zero64 = torch.zeros(n_pad, dtype=I64, device=dev)
-    anti = torch.where(
-        anti_present, -(((tg_counts_g.to(I64) + 1) * q_d) >> rsh), zero64)
-    resched = torch.where(pmask, zero64 - TERM_ONE, zero64)
-
-    u64 = current + 1
-    w64 = weights_s.to(I64)[:, None]
-    sw64 = max(sum_sw, 1)
-    t_num = (d64 - 100 * u64) * w64 * TERM_ONE
-    t_den = d64.clamp(min=1) * sw64
-    targeted_raw = torch.where(
-        d64 > 0,
-        torch.div(t_num, t_den, rounding_mode="floor"),
-        torch.where(d64 == 0, torch.full_like(d64, -BIG_FP),
-                    torch.full_like(d64, -TERM_ONE)),
-    )
-
-    large = 1 << 40
-    sc64 = s_counts.to(I64)[:, :invalid_bucket]
-    se = s_entry[:, :invalid_bucket]
-    min_c = torch.where(
-        has_entries,
-        torch.where(se, sc64, torch.full_like(sc64, large)).min(dim=-1).values,
-        torch.zeros_like(has_entries, dtype=I64))
-    max_c = torch.where(
-        has_entries,
-        torch.where(se, sc64, torch.full_like(sc64, -large)).max(dim=-1).values,
-        torch.zeros_like(has_entries, dtype=I64))
-    r_min = torch.div(torch.full_like(min_c, 1 << RECIP_BITS),
-                      min_c.clamp(min=1), rounding_mode="floor")
-    min_cn = min_c[:, None]
-    max_cn = max_c[:, None]
-    minus_one = torch.full_like(current, -TERM_ONE)
-    delta_boost = torch.where(
-        min_cn == 0, minus_one, ((min_cn - current) * r_min[:, None]) >> rsh)
-    even = torch.where(
-        current != min_cn,
-        delta_boost,
-        torch.where(
-            min_cn == max_cn,
-            minus_one,
-            torch.where(min_cn == 0, torch.full_like(current, TERM_ONE),
-                        ((max_cn - min_cn) * r_min[:, None]) >> rsh),
-        ),
-    )
-    even = torch.where(has_entries[:, None], even, torch.zeros_like(even))
-
-    per_spread = torch.where(has_targets_s[:, None], targeted_raw, even)
-    per_spread = torch.where(missing, minus_one, per_spread)
-    per_spread = torch.where(active_s[:, None], per_spread,
-                             torch.zeros_like(per_spread))
-    spread_total = per_spread.sum(dim=0)                       # [N] int64
-    spread_p = spread_total != 0
-
-    presence = pack_presence_lanes_torch(anti_present, pmask, aff_p, spread_p)
-    num_terms = 1 + popcount4_torch(presence)
-    factor = (60 // num_terms).to(I64)
-    final = (binpack + anti + resched
-             + torch.where(aff_p, aff.to(I64), zero64) + spread_total) * factor
+    # the task group's rows that both score arms read
+    terms = SimpleNamespace(
+        desired_g=desired_g, desired_g_t=desired_counts[g],
+        tg_counts_g=tg_counts_g, pmask=pmask,
+        aff=aff, aff_p=aff_p, vids=spread_vids[g],
+        s_counts=spread_counts[g].clamp(min=0), s_entry=spread_entry[g],
+        desired_sv=spread_desired[g], weights_s=spread_weights[g],
+        has_targets_s=spread_has_targets[g], active_s=spread_active[g],
+        sum_sw=sum_sw)
+    if totals.dtype == I32:
+        final, e_sel, neg_inf = _score_int(terms, e_base, e_ask[g])
+    else:
+        final, neg_inf = _score_float(terms, totals, reserved, util)
+        e_sel = None
+    vids = terms.vids
+    active_s = terms.active_s
 
     # -- ring-ordered limit + max-score selection (engine.py:660-723) -----
     valid = iota < n_real_i
@@ -282,8 +235,8 @@ def _step(static, carry, x, skip_step: bool):
     cand = src_cand | backlog_cand
 
     rank = torch.where(src_cand, ret_excl, ret_total + skip_excl)
-    cand_scores = torch.where(cand, final, torch.full_like(final, NEG_INF))
-    best_score = int(cand_scores.max())
+    cand_scores = torch.where(cand, final, torch.full_like(final, neg_inf))
+    best_score = cand_scores.max().item()
     winners = cand & (cand_scores == best_score)
     best_rank = int(torch.where(winners, rank, torch.full_like(rank, INT32_MAX)).min())
     chosen = -1
@@ -301,11 +254,12 @@ def _step(static, carry, x, skip_step: bool):
         used[ch] += ask
         tg_counts[g, ch] += 1
         job_counts[ch] += 1
-        inc = active_s.to(I32)                                 # [S]
+        inc = active_s.to(spread_counts.dtype)                 # [S]
         ch_vid = vids[:, ch]
         _add_vid(spread_counts[g], ch_vid, inc)
         _or_vid(spread_entry[g], ch_vid, active_s)
-        e_base[ch] = e_sel[ch].to(I32)
+        if e_sel is not None:
+            e_base[ch] = e_sel[ch].to(I32)
         if dp_vids.shape[0]:
             _add_vid(dp_counts, dp_vids[:, ch], dp_applies_g.to(I32))
 
@@ -315,14 +269,178 @@ def _step(static, carry, x, skip_step: bool):
         job_counts[ev_node] += 1
         if evict_tg >= 0:
             tg_counts[ev_tg, ev_node] += 1
-        _add_vid(spread_counts[ev_tg], ev_vid, ev_dec.to(I32))
-        e_base[ev_node] = (
-            (e_base[ev_node].to(I64) * rev_factor.to(I64)) >> E27_BITS
-        ).to(I32)
+        _add_vid(spread_counts[ev_tg], ev_vid, ev_dec.to(spread_counts.dtype))
+        if e_base.shape[0]:
+            e_base[ev_node] = (
+                (e_base[ev_node].to(I64) * rev_factor.to(I64)) >> E27_BITS
+            ).to(I32)
     if not success and not skip_step and unforced:
         failed[g] = True
 
     return chosen, (best_score if success else 0), pulls
+
+
+def _spread_lookup(t):
+    """Per spread and node: the value's count (floored at 0), its
+    desired count, and whether the node lacks the property."""
+    current = _gather_vid(t.s_counts, t.vids)                  # [S, N]
+    d = _gather_vid(t.desired_sv, t.vids)
+    missing = t.vids == (t.desired_sv.shape[-1] - 1)
+    return current, d, missing
+
+
+def _score_int(t, e_base, ea):
+    """The exact integer spec (engine.py:471-574): the int64 score60 of
+    every node, the selection-time exponentials and the non-candidate
+    score."""
+    n_pad = t.tg_counts_g.shape[0]
+    dev = t.tg_counts_g.device
+    anti_present = t.tg_counts_g > 0
+    current, d, missing = _spread_lookup(t)
+    current = current.to(I64)
+    d64 = d.to(I64)
+    invalid_bucket = t.desired_sv.shape[-1] - 1
+    has_entries = t.s_entry[:, :invalid_bucket].any(dim=-1)    # [S]
+
+    e_sel = (e_base.to(I64) * ea.to(I64)) >> E27_BITS          # [N, 2]
+    fit = (20 * E27_ONE - e_sel[:, 0] - e_sel[:, 1]).clamp(0, 18 * E27_ONE)
+    binpack = torch.div(fit * 4, 9, rounding_mode="floor")
+
+    rsh = RECIP_BITS - TERM_BITS
+    q_d = (1 << RECIP_BITS) // max(t.desired_g, 1)
+    zero64 = torch.zeros(n_pad, dtype=I64, device=dev)
+    anti = torch.where(
+        anti_present, -(((t.tg_counts_g.to(I64) + 1) * q_d) >> rsh), zero64)
+    resched = torch.where(t.pmask, zero64 - TERM_ONE, zero64)
+
+    u64 = current + 1
+    w64 = t.weights_s.to(I64)[:, None]
+    sw64 = max(int(t.sum_sw), 1)
+    t_num = (d64 - 100 * u64) * w64 * TERM_ONE
+    t_den = d64.clamp(min=1) * sw64
+    targeted_raw = torch.where(
+        d64 > 0,
+        torch.div(t_num, t_den, rounding_mode="floor"),
+        torch.where(d64 == 0, torch.full_like(d64, -BIG_FP),
+                    torch.full_like(d64, -TERM_ONE)),
+    )
+
+    large = 1 << 40
+    sc64 = t.s_counts.to(I64)[:, :invalid_bucket]
+    se = t.s_entry[:, :invalid_bucket]
+    min_c = torch.where(
+        has_entries,
+        torch.where(se, sc64, torch.full_like(sc64, large)).min(dim=-1).values,
+        torch.zeros_like(has_entries, dtype=I64))
+    max_c = torch.where(
+        has_entries,
+        torch.where(se, sc64, torch.full_like(sc64, -large)).max(dim=-1).values,
+        torch.zeros_like(has_entries, dtype=I64))
+    r_min = torch.div(torch.full_like(min_c, 1 << RECIP_BITS),
+                      min_c.clamp(min=1), rounding_mode="floor")
+    min_cn = min_c[:, None]
+    max_cn = max_c[:, None]
+    minus_one = torch.full_like(current, -TERM_ONE)
+    delta_boost = torch.where(
+        min_cn == 0, minus_one, ((min_cn - current) * r_min[:, None]) >> rsh)
+    even = torch.where(
+        current != min_cn,
+        delta_boost,
+        torch.where(
+            min_cn == max_cn,
+            minus_one,
+            torch.where(min_cn == 0, torch.full_like(current, TERM_ONE),
+                        ((max_cn - min_cn) * r_min[:, None]) >> rsh),
+        ),
+    )
+    even = torch.where(has_entries[:, None], even, torch.zeros_like(even))
+
+    per_spread = torch.where(t.has_targets_s[:, None], targeted_raw, even)
+    per_spread = torch.where(missing, minus_one, per_spread)
+    per_spread = torch.where(t.active_s[:, None], per_spread,
+                             torch.zeros_like(per_spread))
+    spread_total = per_spread.sum(dim=0)                       # [N] int64
+    spread_p = spread_total != 0
+
+    presence = pack_presence_lanes_torch(anti_present, t.pmask, t.aff_p, spread_p)
+    num_terms = 1 + popcount4_torch(presence)
+    factor = (60 // num_terms).to(I64)
+    final = (binpack + anti + resched
+             + torch.where(t.aff_p, t.aff.to(I64), zero64) + spread_total) * factor
+    return final, e_sel, NEG_INF
+
+
+def _score_float(t, totals, reserved, util):
+    """The float32 arm (engine.py:575-639): the f32 score of every node
+    and the non-candidate score. Constants that divide are f32 tensors
+    on the device (see the module doc)."""
+    dev = totals.device
+    f = lambda v: torch.tensor(v, dtype=F32, device=dev)  # noqa: E731
+    one, zero, minus_one, eps = f(1.0), f(0.0), f(-1.0), f(1e-9)
+    if reserved.shape[0]:
+        node_cpu = totals[:, DIM_CPU] - reserved[:, DIM_CPU]
+        node_mem = totals[:, DIM_MEM] - reserved[:, DIM_MEM]
+    else:
+        node_cpu, node_mem = totals[:, DIM_CPU], totals[:, DIM_MEM]
+    free_cpu = one - util[:, DIM_CPU] / torch.maximum(node_cpu, eps)
+    free_mem = one - util[:, DIM_MEM] / torch.maximum(node_mem, eps)
+    ten = f(10.0)
+    fitness = f(20.0) - (torch.pow(ten, free_cpu) + torch.pow(ten, free_mem))
+    binpack = torch.minimum(torch.maximum(fitness, zero), f(18.0)) / f(18.0)
+
+    anti_present = t.tg_counts_g > 0
+    collisions = t.tg_counts_g.to(F32)
+    desired = t.desired_g_t.to(F32)
+    anti = torch.where(anti_present, -(collisions + one) / desired, zero)
+    resched = torch.where(t.pmask, minus_one, zero)
+
+    current, d, missing = _spread_lookup(t)                    # f32 [S, N]
+    big = f(F32_BIG)
+    used_count = current + one
+    weight_frac = t.weights_s[:, None] / torch.maximum(t.sum_sw, eps)
+    pos = d > zero
+    targeted_raw = torch.where(
+        pos,
+        (d - used_count) / torch.where(pos, d, one) * weight_frac,
+        torch.where(d == zero, -big, minus_one),
+    )
+
+    invalid_bucket = t.desired_sv.shape[-1] - 1
+    has_entries = t.s_entry[:, :invalid_bucket].any(dim=-1)    # [S]
+    scf = t.s_counts[:, :invalid_bucket]
+    se = t.s_entry[:, :invalid_bucket]
+    inf = f(float("inf"))
+    min_c = torch.where(has_entries, torch.where(se, scf, inf).amin(dim=-1), zero)
+    max_c = torch.where(has_entries, torch.where(se, scf, -inf).amax(dim=-1), zero)
+    min_cn = min_c[:, None]
+    max_cn = max_c[:, None]
+    min_div = torch.maximum(min_cn, eps)
+    delta_boost = torch.where(min_cn == zero, minus_one, (min_cn - current) / min_div)
+    even = torch.where(
+        current != min_cn,
+        delta_boost,
+        torch.where(
+            min_cn == max_cn,
+            minus_one,
+            torch.where(min_cn == zero, one, (max_cn - min_cn) / min_div),
+        ),
+    )
+    even = torch.where(has_entries[:, None], even, zero)
+
+    per_spread = torch.where(t.has_targets_s[:, None], targeted_raw, even)
+    per_spread = torch.where(missing, minus_one, per_spread)
+    per_spread = torch.where(t.active_s[:, None], per_spread, zero)
+    # summed over s = 0..S-1 in index order
+    spread_total = torch.zeros_like(binpack)
+    for s in range(per_spread.shape[0]):
+        spread_total = spread_total + per_spread[s]
+    spread_p = spread_total != zero
+
+    presence = pack_presence_lanes_torch(anti_present, t.pmask, t.aff_p, spread_p)
+    num_terms = (1 + popcount4_torch(presence)).to(F32)
+    final = (binpack + anti + resched + torch.where(t.aff_p, t.aff, zero)
+             + spread_total) / num_terms
+    return final, float("-inf")
 
 
 def _add_vid(counts, vids, inc) -> None:
@@ -343,7 +461,7 @@ def place_scan(n_pad: int, static, carry, xs) -> Tuple[tuple, tuple]:
     """Scan the step over the eval's placements. Pure: the input carry is
     not modified; returns ``(final_carry, (chosen, scores, pulls,
     skipped, evict))`` on the inputs' device."""
-    _check_int_arm(static)
+    _check_arm(static)
     if static[0].shape[0] != n_pad:
         raise ValueError(f"n_pad {n_pad} != node axis {static[0].shape[0]}")
     carry = tuple(c.clone() for c in carry)
@@ -355,14 +473,25 @@ def place_scan(n_pad: int, static, carry, xs) -> Tuple[tuple, tuple]:
     ev_node_l = evict_node.tolist()
     ev_tg_l = evict_tg.tolist()
     limit_l = limit_p.tolist()
-    sw_l = sum_sw_p.tolist()
+    float_arm = static[0].dtype == F32
+    # the int arm reads the weight sum as an exact Python int, the float
+    # arm as the f32 element itself
+    sw_l = list(sum_sw_p) if float_arm else sum_sw_p.tolist()
     chosen: List[int] = []
-    scores: List[int] = []
+    scores: list = []
     pulls: List[int] = []
     skipped: List[bool] = []
     for p in range(p_count):
         g = tg_l[p]
         skip_step = bool(failed[g])
+        if skip_step:
+            # a step of a failed task group (or a batch's padding)
+            # changes nothing of the carry (engine.py:284, :722-723)
+            chosen.append(-1)
+            scores.append(0)
+            pulls.append(0)
+            skipped.append(True)
+            continue
         x = (g, penalty_idx[p], ev_node_l[p], evict_res[p], ev_tg_l[p],
              limit_l[p], sw_l[p], ev_factor[p], rev_factor[p], forced_node[p])
         c, s, n = _step(static, carry, x, skip_step)
@@ -373,7 +502,7 @@ def place_scan(n_pad: int, static, carry, xs) -> Tuple[tuple, tuple]:
     dev = static[0].device
     ys = (
         torch.tensor(chosen, dtype=I32, device=dev),
-        torch.tensor(scores, dtype=I64, device=dev),
+        torch.tensor(scores, dtype=F32 if float_arm else I64, device=dev),
         torch.tensor(pulls, dtype=I32, device=dev),
         torch.tensor(skipped, dtype=torch.bool, device=dev),
         torch.zeros((p_count, 0), dtype=I32, device=dev),

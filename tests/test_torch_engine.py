@@ -21,6 +21,7 @@ from nomad_tpu.scheduler.testing import Harness as JaxHarness
 import nomad_tpu_torch.mock as tmock
 import nomad_tpu_torch.structs.structs as tstructs
 from nomad_tpu_torch.scheduler.testing import Harness as TorchHarness
+from nomad_tpu_torch.tpu import parity
 from nomad_tpu_torch.trace import lifecycle as tlifecycle
 from nomad_tpu_torch.utils import metrics as tmetrics
 
@@ -264,22 +265,52 @@ def test_port_plans_equal_host_oracle(name):
     assert view(ht)[0] == view(hh)[0]
 
 
-def test_float_mode_eval_is_unported(monkeypatch):
-    """A non-deterministic eval needs the float arm: the engine refuses
-    it through the unsupported-feature gate, counted with its reason,
-    and the host stack places it."""
+def register_float(pkg, h, job, sched_type="service", deterministic=True,
+                   _register=register):
+    """``register`` for a non-deterministic eval: the float32 arm (it
+    stands in for ``register`` in the scenarios)."""
+    return _register(pkg, h, job, sched_type, deterministic=False)
+
+
+def assign_divergence(got, ref):
+    """Placement-multiset divergence (``parity.tg_multiset_divergence``)
+    of two ``{(plan or job, alloc name) -> node}`` maps over the same
+    keys, grouped by (plan or job, task group)."""
+    from nomad_tpu_torch.tpu import parity
+
+    assert set(got) == set(ref)
+    keys = sorted(ref)
+    groups = [f"{k[0]}/{k[1].rsplit('[', 1)[0]}" for k in keys]
+    return parity.tg_multiset_divergence(
+        [got[k] for k in keys], [ref[k] for k in keys], groups)
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_port_float_plans_within_bound_of_jax(name, monkeypatch):
+    """Non-deterministic evals (the float32 arm, the server's default)
+    through both engines, within ``parity.FLOAT_DIVERGENCE_BOUND`` (0)
+    placements per scenario. The host stack shuffles each eval's nodes
+    with Python's ``random``, which both packages share: seeded the
+    same, both walk the same node order."""
+    import random
+    import sys
+
     counters = _Counters(monkeypatch)
-    h = new_harness(TORCH)
-    for n in make_nodes(TORCH, 10, seed=11):
-        h.state.upsert_node(h.next_index(), n)
-    job = tmock.job()
-    job.id = "float"
-    job.task_groups[0].count = 3
-    register(TORCH, h, job, deterministic=False)
-    assert counters.count("nomad.tpu_engine.unported") == 1
-    assert counters.count("nomad.tpu_engine.unported.float_arm") == 1
-    assert counters.count("nomad.tpu_engine.handled") == 0
-    assert len(view(h)[0]) == 3
+    module = sys.modules[__name__]
+    monkeypatch.setattr(module, "register", register_float)
+    views = []
+    for pkg in (JAX, TORCH):
+        random.seed(20)
+        h = new_harness(pkg)
+        SCENARIOS[name](pkg, h)
+        views.append(view(h))
+    vj, vt = views
+    assert vt[0], "scenario placed nothing"
+    assert assign_divergence(vt[0], vj[0]) <= parity.FLOAT_DIVERGENCE_BOUND
+    assert vt[1:] == vj[1:]
+    assert counters.count("nomad.tpu_engine.handled") >= 1
+    assert counters.count("nomad.tpu_engine.unported") == 0
+    assert counters.count("nomad.tpu_engine.fallback") == 0
 
 
 def test_preemption_enabled_eval_is_unported(monkeypatch):

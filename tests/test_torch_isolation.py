@@ -1,5 +1,6 @@
 """The port stands alone: no JAX and nothing of nomad_tpu, and no silent
-move to the CPU when CUDA is asked for."""
+move to the CPU when CUDA is asked for. Its threaded code passes the
+repo's lock and shared-state lint rules with an empty baseline."""
 import ast
 import os
 import subprocess
@@ -132,3 +133,97 @@ def test_scheduler_on_cuda_without_cuda_raises(monkeypatch):
                                         triggered_by="job-register",
                                         job_id=job.id, namespace=job.namespace))
     assert not h.plans
+
+
+_BLOCKED_SERVER_RUN = textwrap.dedent("""
+    import importlib.abc, sys, time
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name == "nomad_tpu" or name.startswith("nomad_tpu."):
+                raise ImportError("blocked: " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    sys.path.insert(0, {repo!r})
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    placed = {{}}
+    for deterministic in (False, True):
+        srv = Server(ServerConfig(device="cpu", deterministic=deterministic,
+                                  device_min_placements=0))
+        try:
+            srv.start()
+            for i in range(8):
+                srv.register_node(mock.node())
+            job = mock.job()
+            job.task_groups[0].count = 6
+            srv.register_job(job)
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                live = [a for a in srv.fsm.state.allocs_by_job(job.namespace, job.id, True)
+                        if a.desired_status == "run"]
+                if len(live) == 6:
+                    break
+                time.sleep(0.02)
+            placed[deterministic] = len(live)
+            assert srv.device_batcher.stats["evals"] >= 1
+        finally:
+            srv.stop()
+    assert placed == {{False: 6, True: 6}}, placed
+    assert not any(m == "nomad_tpu" or m.startswith("nomad_tpu.") for m in sys.modules)
+    assert sys.modules.get("jax") is None
+    print("SERVER-ISOLATED-OK")
+""")
+
+
+def test_port_server_runs_with_jax_and_nomad_tpu_blocked():
+    """The server slice, both arms, in a process where importing jax or
+    anything of nomad_tpu fails."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_SERVER_RUN.format(repo=str(REPO))],
+        capture_output=True, text=True, timeout=240, env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "SERVER-ISOLATED-OK" in out.stdout
+
+
+def test_server_default_config_without_cuda_raises(monkeypatch):
+    """``Server(ServerConfig())`` asks for CUDA: without a card it raises
+    before starting anything, rather than carrying on on the CPU."""
+    import threading
+
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = threading.active_count()
+    with pytest.raises(RuntimeError, match="cuda"):
+        Server(ServerConfig())
+    assert threading.active_count() == before
+
+
+def test_batcher_on_cuda_without_cuda_raises(monkeypatch):
+    from nomad_tpu_torch.tpu.batcher import DeviceBatcher
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DeviceBatcher()
+
+
+def test_port_threaded_code_passes_the_lock_and_state_lint():
+    """nomad-lint's lock-order, condition-discipline and
+    shared-state-discipline rules over the whole port, against an empty
+    baseline: a finding is fixed in the port, never baselined."""
+    baseline = Path(__file__).resolve().parent / "torch_lint_baseline.json"
+    assert baseline.read_text().strip() == "[]"
+    out = subprocess.run(
+        [sys.executable, "-m", "nomad_tpu.analysis", "nomad_tpu_torch",
+         "--rule", "lock-order,condition-discipline,shared-state-discipline",
+         "--baseline", str(baseline)],
+        capture_output=True, text=True, timeout=600, cwd=str(REPO))
+    assert out.returncode == 0, out.stdout + out.stderr

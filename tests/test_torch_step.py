@@ -115,12 +115,13 @@ def test_preemption_axis_raises():
         kernels.place_scan(n_pad, st, ca, x)
 
 
-def test_float_arm_raises():
+def test_other_dtypes_raise():
+    """The scan has an int32 and a float32 arm; a float64 encode raises."""
     n_pad, static, carry, xs = example_scan_variant("s0", n_nodes=40, seed=1)
     static = list(static)
-    static[0] = static[0].astype(np.float32)
+    static[0] = static[0].astype(np.float64)
     st, ca, x = convert.scan_inputs_to_torch(static, carry, xs, "cpu")
-    with pytest.raises(NotImplementedError, match="int arm"):
+    with pytest.raises(NotImplementedError, match="float32 arm"):
         kernels.place_scan(n_pad, st, ca, x)
 
 
@@ -138,7 +139,7 @@ def test_cpu_scan_launches_no_kernel():
     kernels.reset_launch_counts()
     n_pad, static, carry, xs = example_scan_variant("s1", n_nodes=40, seed=6)
     _torch_run(n_pad, static, carry, xs)
-    assert kernels.LAUNCHES["place_scan"] == 0
+    assert kernels.LAUNCHES == {"place_scan": 0, "place_scan_f32": 0}
 
 
 @pytest.mark.parametrize("scenario", ["affinities", "scale_up_down", "distinct_property",
