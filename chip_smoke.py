@@ -11,29 +11,58 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
 2. build: every kernel under nomad_tpu_torch/tpu/csrc/ compiled with nvcc
    for sm_90a (one nvcc per source, started together);
 3. kernel vs plain, int arm: the placement scan kernel against its plain
-   PyTorch version on the card, bit for bit, at 5,000 nodes and P = 1,024
-   for each specialization of the step, at n_pad >= 32,768, and B = 3
-   evals in one launch against three single launches;
+   PyTorch version on the card, bit for bit, at 5,000 nodes and P = 512
+   (1,024 before the preemption slice; cut to make room) for each
+   specialization of the step, at n_pad >= 32,768, and B = 3 evals in
+   one launch against three single launches;
 4. kernel vs plain, float arm: the same variants in float32, held by the
    placement-multiset divergence (bound 0) and the score difference at
    equal picks (``parity.FLOAT_SCORE_TOL``); then, in both arms, B = 8
    evals in one launch (K3) against eight single launches, with times;
-5. the Harness slice: four evals of the C1M job mix (bench.py
+5. the forced-node kernel (K4) against its plain version, both arms, bit
+   for bit, at 5,000 nodes with P = 5,000 forced nodes, and with two
+   device dims and a padded placement axis; then against the scan
+   kernel on the same input (the synthetic variant's node capacities);
+6. the scan's preemption branch (has_pre, int arm) against its plain
+   version, bit for bit, at 5,000 nodes with C = 16 candidate slots: the
+   ``preempt`` variant (P = 1,024) and the ``preempt_forced`` variant
+   (the system preempt pass, P = 1,250); then B = 3 evals with C = 16, 0
+   and 5 in one launch against three single launches;
+7. the Harness slice: four evals of the C1M job mix (bench.py
    c1m_mixed_jobs templates 0, 10, 28, and 10 re-registered with its cpu
    raised by 1) through the port's scheduler Harness on CUDA at 5,000
    nodes (int arm); the kernel's launch count must rise, no eval may
    take the unported or fallback gate, every alloc must be placed, and
    the plans must equal the port's own host binpack stack on the same
    state;
-6. the server slice, twice: the port's Server at ServerConfig defaults
+8. the server slice, twice: the port's Server at ServerConfig defaults
    (float arm) and with deterministic=True (int arm), 5,000 C1M nodes,
    16 workers, the C1M job mix cut to 60,000 placements; every placement
    committed to the FSM, no node overcommitted, nothing unported or
-   fallen back, the arm's kernel launched, a mean eval batch above 1;
-7. the main paths' kernel inputs replayed (the Harness evals, and the
-   first and last batched launch of each server run): kernel vs plain
-   (int bit for bit, float within the bound), with the kernel's time,
-   the plain version's time and the kernel's bound on this card.
+   fallen back, the arm's kernel launched, a mean eval batch above 1.
+   The float run then registers one system job on every node: the
+   forced-node kernel's float arm must launch on the default path;
+9. the system slice: the port's Server with deterministic=True, 16
+   workers, 5,000 nodes of BASELINE config 4's shape (1,200 MHz, 2,048
+   MB, every fourth a GPU node), and in order (a) a low-priority fill of
+   four service (priority 20) and four batch (40) jobs, ~9.5 allocs a
+   node; (b) a system job at priority 60: K4, then the preempt pass
+   through the scan's has_pre branch; (c) with service preemption
+   switched on, a service job at priority 65 (the generic has_pre
+   path); (d) BASELINE config 4's GPU system job, whose preempt subset
+   goes to the host per-node loop (device asks), as in the reference.
+   Every preemptor's allocs run, every preempted alloc is evicted in the
+   FSM, no node is overcommitted, nothing is unported, fallbacks are
+   printed with their reasons, K4 and has_pre launched;
+10. victim for victim: evals (a)-(c) again through the port's Harness
+   at 5,000 nodes, one at a time, placed by tpu_binpack on the card and
+   by the host binpack stack from the same state: plans and eviction
+   sets (the same victims, in the same order) must be equal;
+11. the main paths' kernel inputs replayed (the Harness evals, the last
+   batched launch of each server run, every K4 launch, the two has_pre
+   launches of the system slice that evicted on the most steps): kernel
+   vs plain (int bit for bit, float within the bound), with the kernel's
+   time, the plain version's time and the kernel's bound on this card.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -44,6 +73,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -56,7 +86,11 @@ REPO = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 N_NODES = 5000
+# the scan variants of the earlier slices run at half their first depth
+# (P = 1,024 in PRs 1-2) to leave room in the time limit
+P_SCAN_VARIANT = 512
 P_VARIANT = 1024
+P_PREEMPT_FORCED = 1250
 SERVER_PLACEMENTS = 60_000
 SERVER_WORKERS = 16
 BATCH_B = 8
@@ -126,13 +160,19 @@ def run_plain(step, n_pad, static, carry, xs):
     return step.place_scan(n_pad, static, carry, xs)
 
 
-def plain_batched(step, static_b, carry_b, xs_b):
-    """The plain version of a K3 launch: each eval of the batch in turn."""
+def plain_batched(step, static_b, carry_b, xs_b, stats_b=None):
+    """The plain version of a K3 launch: each eval of the batch in turn
+    (``stats_b``: a list that gains each eval's preemption work)."""
     import torch
 
-    outs = [step.place_scan(static_b[0].shape[1], tuple(t[b] for t in static_b),
-                            tuple(t[b] for t in carry_b), tuple(t[b] for t in xs_b))
-            for b in range(static_b[0].shape[0])]
+    outs = []
+    for b in range(static_b[0].shape[0]):
+        stats = {}
+        outs.append(step.place_scan(static_b[0].shape[1], tuple(t[b] for t in static_b),
+                                    tuple(t[b] for t in carry_b), tuple(t[b] for t in xs_b),
+                                    stats))
+        if stats_b is not None:
+            stats_b.append(stats)
     carry = tuple(torch.stack(col) for col in zip(*(o[0] for o in outs)))
     ys = tuple(torch.stack(col) for col in zip(*(o[1] for o in outs)))
     return carry, ys
@@ -143,7 +183,7 @@ def phase_variants(kernels, step, convert, engine):
     import numpy as np
 
     worst = 0
-    cases = [(v, N_NODES, P_VARIANT, 1) for v in engine.SCAN_VARIANTS]
+    cases = [(v, N_NODES, P_SCAN_VARIANT, 1) for v in engine.SCAN_VARIANTS]
     cases.append(("s1", 33000, 4, 2))  # n_pad >= PACK_COUNT_MAX
     for variant, n_nodes, p, seed in cases:
         n_pad, st, ca, xs = engine.example_scan_variant(
@@ -159,7 +199,7 @@ def phase_variants(kernels, step, convert, engine):
 
     # B = 3 evals in one launch against three single launches
     evals = [engine.example_scan_variant("all", n_nodes=N_NODES, n_tgs=3,
-                                         n_placements=P_VARIANT, seed=s)
+                                         n_placements=P_SCAN_VARIANT, seed=s)
              for s in (11, 12, 13)]
     n_pad = evals[0][0]
     singles = []
@@ -175,7 +215,7 @@ def phase_variants(kernels, step, convert, engine):
             f"batched eval {b}"))
     b_ms = cuda_ms(lambda: kernels.place_scan_batched(
         sb, tuple(c.clone() for c in cb), xb))
-    log(f"batched B=3 n_pad={n_pad} P={P_VARIANT} equal to 3 single launches: yes "
+    log(f"batched B=3 n_pad={n_pad} P={P_SCAN_VARIANT} equal to 3 single launches: yes "
         f"kernel_ms={b_ms:.3f}")
     return worst
 
@@ -191,7 +231,7 @@ def phase_float_variants(kernels, step, convert, engine):
     worst = 0.0
     for variant in engine.SCAN_VARIANTS:
         n_pad, st, ca, xs = engine.example_scan_variant(
-            variant, n_nodes=N_NODES, n_tgs=3, n_placements=P_VARIANT, seed=1,
+            variant, n_nodes=N_NODES, n_tgs=3, n_placements=P_SCAN_VARIANT, seed=1,
             dtype=np.float32)
         s, c, x = convert.scan_inputs_to_torch(st, ca, xs, DEVICE)
         k_out = run_kernel(kernels, n_pad, s, c, x)
@@ -200,7 +240,7 @@ def phase_float_variants(kernels, step, convert, engine):
         worst = max(worst, diff)
         k_ms = cuda_ms(lambda: run_kernel(kernels, n_pad, s, c, x))
         placed = int((k_out[1][0] >= 0).sum())
-        log(f"float variant {variant:18s} n_pad={n_pad} P={P_VARIANT} placed={placed} "
+        log(f"float variant {variant:18s} n_pad={n_pad} P={P_SCAN_VARIANT} placed={placed} "
             f"divergence={div} max_abs_dscore={diff!r} bit_exact={'yes' if exact else 'no'} "
             f"kernel_ms={k_ms:.3f} plain_ms={p_ms:.1f}")
     return worst
@@ -216,7 +256,7 @@ def phase_batched(kernels, convert, engine):
 
     for arm, dtype in (("int", np.int32), ("float", np.float32)):
         evals = [engine.example_scan_variant("all", n_nodes=N_NODES, n_tgs=3,
-                                             n_placements=P_VARIANT, seed=s, dtype=dtype)
+                                             n_placements=P_SCAN_VARIANT, seed=s, dtype=dtype)
                  for s in range(21, 21 + BATCH_B)]
         n_pad = evals[0][0]
         singles, single_ms = [], []
@@ -238,11 +278,431 @@ def phase_batched(kernels, convert, engine):
         b_ms = cuda_ms(lambda: kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb))
         nbytes, ops = kernels.place_scan_batched_work(sb, cb, xb, ys_b[3])
         bound_ms = max(nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S) * 1e3
-        log(f"K3 {arm} B={BATCH_B} n_pad={n_pad} P={P_VARIANT}: equal to {BATCH_B} single "
+        log(f"K3 {arm} B={BATCH_B} n_pad={n_pad} P={P_SCAN_VARIANT}: equal to {BATCH_B} single "
             f"launches (max |dscore| {worst!r}); batched_ms={b_ms:.3f} "
             f"singles_sum_ms={sum(single_ms):.3f} singles_max_ms={max(single_ms):.3f} "
             f"ratio_to_slowest_single={b_ms / max(single_ms):.3f} bytes={nbytes} ops={ops} "
             f"bound_ms={bound_ms:.6f}")
+
+
+def phase_forced(kernels, convert, engine, forced):
+    """K4 against its plain version on the card, both arms, at N_NODES
+    nodes with one forced node per node (P = N_NODES), and with two
+    device dims and a padded placement axis; then against the scan
+    kernel on the same input. Returns the records of the launches."""
+    import numpy as np
+    import torch
+
+    recs = []
+    for dtype, device_dims, pad in ((np.int32, 0, False), (np.float32, 0, False),
+                                    (np.int32, 2, True), (np.float32, 2, True)):
+        arm = "int" if dtype == np.int32 else "float"
+        n_pad, st, ca, xs = engine.example_forced_variant(
+            n_nodes=N_NODES, n_placements=N_NODES, seed=5, dtype=dtype, device_dims=device_dims)
+        if pad:
+            p = xs[0].shape[0]
+            p_pad = engine._round_up(p + 1)
+            fills = (0, -1, -1, 0, -1, 0, 0, 0, 0, -1)
+            xs = tuple(np.pad(a, ((0, p_pad - p),) + ((0, 0),) * (a.ndim - 1), constant_values=f)
+                       for a, f in zip(xs, fills))
+        s, c, x = convert.scan_inputs_to_torch(st, ca, xs, DEVICE)
+        got = kernels.forced_eval(s, c, x)
+        plain, p_ms = timed_wall(lambda: forced.forced_eval(s, c, x))
+        for name, a, b in zip(("chosen", "scores", "pulls", "skipped", "evict"), got, plain):
+            if a.dtype != b.dtype or not torch.equal(a.cpu(), b.cpu()):
+                raise AssertionError(f"K4 {arm} D={4 + device_dims}: kernel {name} differs from plain")
+        _, scan = kernels.place_scan(n_pad, s, tuple(t.clone() for t in c), x)
+        if not (torch.equal(got[0].cpu(), scan[0].cpu()) and torch.equal(got[1].cpu(), scan[1].cpu())):
+            raise AssertionError(f"K4 {arm} D={4 + device_dims}: kernel differs from the scan kernel")
+        k_ms = cuda_ms(lambda: kernels.forced_eval(s, c, x), reps=21)
+        scan_ms = cuda_ms(lambda: kernels.place_scan(n_pad, s, tuple(t.clone() for t in c), x))
+        nbytes, ops = kernels.forced_eval_work(s, c, x)
+        placed = int((got[0] >= 0).sum())
+        recs.append((arm, k_ms, p_ms, nbytes, ops))
+        log(f"K4 {arm} D={4 + device_dims} P={x[0].shape[0]} n_pad={n_pad} placed={placed} "
+            f"equal to plain and to the scan kernel: yes kernel_ms={k_ms:.4f} "
+            f"plain_ms={p_ms:.2f} scan_kernel_ms={scan_ms:.3f} bytes={nbytes} ops={ops}")
+    return recs
+
+
+def phase_has_pre(kernels, step, convert, engine):
+    """The scan's preemption branch (int arm) against its plain version on
+    the card, bit for bit: the ``preempt`` variant (P = 1,024) and the
+    ``preempt_forced`` variant (P = 1,250) at N_NODES nodes with C = 16;
+    then B = 3 evals of mixed candidate widths (C = 16, 0, 5) in one launch
+    against three single launches."""
+    import numpy as np
+
+    from nomad_tpu_torch.tpu.batcher import pad_encoded
+    from nomad_tpu_torch.tpu.engine import EncodedEval
+
+    for variant, p in (("preempt", P_VARIANT), ("preempt_forced", P_PREEMPT_FORCED)):
+        n_pad, st, ca, xs = engine.example_scan_variant(
+            variant, n_nodes=N_NODES, n_tgs=3, n_placements=p, seed=1)
+        s, c, x = convert.scan_inputs_to_torch(st, ca, xs, DEVICE)
+        k_out = run_kernel(kernels, n_pad, s, c, x)
+        stats = {}
+        p_out, p_ms = timed_wall(lambda: step.place_scan(n_pad, s, c, x, stats))
+        compare(k_out, p_out, f"has_pre variant {variant}")
+        k_ms = cuda_ms(lambda: run_kernel(kernels, n_pad, s, c, x))
+        nbytes, ops = kernels.place_scan_work(s, c, x, k_out[1][3], stats)
+        evicting = int((k_out[1][4] >= 0).any(dim=1).sum())
+        log(f"has_pre variant {variant:15s} n_pad={n_pad} P={p} C={st[20].shape[1]} "
+            f"placed={int((k_out[1][0] >= 0).sum())} evicting_steps={evicting} equal=yes "
+            f"kernel_ms={k_ms:.3f} per_step_ms={k_ms / p:.4f} plain_ms={p_ms:.1f} "
+            f"greedy_rows={stats.get('greedy_rows', 0)} greedy_keys={stats.get('greedy_keys', 0)} "
+            f"bytes={nbytes} ops={ops} bound_ms={max(nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S) * 1e3:.6f}")
+
+    def enc_of(variant, seed, c=None):
+        n_pad, st, ca, xs = engine.example_scan_variant(
+            variant, n_nodes=N_NODES, n_tgs=3, n_placements=P_VARIANT, seed=seed)
+        if c is not None:
+            st = st[:20] + tuple(a[:, :c] for a in st[20:])
+            ca = ca[:9] + (ca[9][:, :c],) + ca[10:]
+        return EncodedEval(n_real=N_NODES, n_pad=n_pad, g=3, s=st[9].shape[1],
+                           v=st[10].shape[2], p=P_VARIANT, dtype=np.int32, static=st,
+                           carry=ca, xs=xs, missing_list=[], nodes=[], table=None, start_ns=0)
+
+    encs = [enc_of("preempt", 31), enc_of("s1", 32), enc_of("preempt", 33, c=5)]
+    singles = [run_kernel(kernels, e.n_pad, *convert.scan_inputs_to_torch(
+        e.static, e.carry, e.xs, DEVICE)) for e in encs]
+    e0 = encs[0]
+    # n, g, s, v, p, dtype, d, k, aff, evict dims, factors, dp, dp vocab,
+    # forced, candidate slots, count groups
+    pads = (e0.n_pad, 4, 1, 8, P_VARIANT, np.int32, 4, 0, 0, 0, 0, 0, 1, 0, 16, 8)
+    padded = [pad_encoded(e, *pads) for e in encs]
+    stacked = [tuple(np.stack(col) for col in zip(*(q[k] for q in padded))) for k in range(3)]
+    sb, cb, xb = convert.scan_inputs_to_torch(*stacked, DEVICE)
+    carry_b, ys_b = kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb)
+    for b, (sc, sy) in enumerate(singles):
+        cw = sy[4].shape[1]
+        for name, a, bb in zip(("chosen", "scores", "pulls", "skipped"), ys_b[:4], sy[:4]):
+            if not torch_equal(a[b], bb):
+                raise AssertionError(f"has_pre B=3 eval {b}: {name} differs from its single launch")
+        if not torch_equal(ys_b[4][b][:, :cw], sy[4]) or not bool((ys_b[4][b][:, cw:] == -1).all()):
+            raise AssertionError(f"has_pre B=3 eval {b}: evict differs from its single launch")
+    b_ms = cuda_ms(lambda: kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb))
+    log(f"has_pre B=3 (C = 16, 0, 5) n_pad={e0.n_pad} P={P_VARIANT}: equal to 3 single "
+        f"launches: yes batched_ms={b_ms:.3f}")
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+
+
+def config4_nodes(mock, n_nodes):
+    """BASELINE config 4's fleet (bench.py:1074-1087): every node dc1 and
+    linux with 1,200 MHz and 2,048 MB, every fourth a mock.nvidia_node()
+    (one GPU device group of two instances); ids from the index."""
+    nodes = []
+    for i in range(n_nodes):
+        n = mock.nvidia_node() if i % 4 == 0 else mock.node()
+        n.id = f"0000c4c4-0000-4000-8000-{i:012d}"
+        n.name = f"sys-{i}"
+        n.datacenter = "dc1"
+        n.attributes["kernel.name"] = "linux"
+        n.node_resources.cpu_shares = 1200
+        n.node_resources.memory_mb = 2048
+        n.compute_class()
+        nodes.append(n)
+    return nodes
+
+
+def preempt_jobs(mock, structs, n_nodes):
+    """The system slice's jobs, in order: (a) the fill, four service jobs
+    at priority 20 and four batch jobs at 40 of 100 MHz / 160 MB allocs,
+    ~9.5 a node (a full node holds 11); (b) a system job at priority 60
+    with no device ask (300 MHz / 256 MB); (c) a service job at priority
+    65 (1,000 allocs of 200 MHz / 256 MB; the system job's allocs are
+    within the priority delta of 10, so only the fill is preemptible);
+    (d) BASELINE config 4's GPU system job (bench.py:1062-1071: priority
+    80, 600 MHz / 256 MB, one GPU). Returns [(phase, job, kind)]."""
+    def batch_or_service(kind, job_id, prio, count, cpu, mem):
+        j = mock.job() if kind == "service" else mock.batch_job()
+        j.id = job_id
+        j.priority = prio
+        tg = j.task_groups[0]
+        tg.count = count
+        tg.ephemeral_disk.size_mb = 50
+        tg.tasks[0].resources = structs.Resources(cpu=cpu, memory_mb=mem)
+        return j
+
+    per_job = int(n_nodes * 9.5) // 8
+    out = []
+    for k in range(4):
+        out.append(("a", batch_or_service("service", f"fill-svc-{k}", 20, per_job, 100, 160),
+                    "service"))
+        out.append(("a", batch_or_service("batch", f"fill-batch-{k}", 40, per_job, 100, 160),
+                    "batch"))
+    mid = mock.system_job()
+    mid.id = "sys-mid"
+    mid.priority = 60
+    mid.task_groups[0].tasks[0].resources = structs.Resources(cpu=300, memory_mb=256)
+    out.append(("b", mid, "system"))
+    out.append(("c", batch_or_service("service", "svc-high", 65, n_nodes // 5, 200, 256),
+                "service"))
+    gpu = mock.system_job()
+    gpu.id = "sys-gpu"
+    gpu.priority = 80
+    gpu.task_groups[0].tasks[0].resources = structs.Resources(
+        cpu=600, memory_mb=256, devices=[structs.RequestedDevice(name="gpu", count=1)])
+    out.append(("d", gpu, "system"))
+    return out
+
+
+def preemption_config(structs, service: bool):
+    """The SchedulerConfiguration of the slice: tpu_binpack, system
+    preemption on (the default), service preemption as asked."""
+    return structs.SchedulerConfiguration(
+        scheduler_algorithm="tpu_binpack",
+        preemption_config=structs.PreemptionConfig(
+            system_scheduler_enabled=True, service_scheduler_enabled=service))
+
+
+class _Spy:
+    """Counters and fallback reasons of a run, and the kernel inputs its
+    main path launched with (restored on exit)."""
+
+    def __init__(self, kernels):
+        import logging
+
+        from nomad_tpu_torch.utils import metrics
+
+        self.kernels, self.metrics = kernels, metrics
+        self.counted, self.reasons = [], []
+        self.batched, self.forced = [], []
+        spy = self
+
+        class Reasons(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                if "fallback" in msg or "to host" in msg:
+                    spy.reasons.append(msg)
+
+        self.handler = Reasons(level=logging.DEBUG)
+        self.logger = logging.getLogger("nomad_tpu.tpu.engine")
+
+    def __enter__(self):
+        k = self.kernels
+        self.orig = (self.metrics.incr_counter, k.place_scan_batched, k.forced_eval)
+        orig_incr, orig_batched, orig_forced = self.orig
+
+        def count(name, value=1.0):
+            self.counted.append(name)
+            orig_incr(name, value)
+
+        def batched(static_b, carry_b, xs_b):
+            inputs = tuple(tuple(t.clone() for t in part) for part in (static_b, carry_b, xs_b))
+            out = orig_batched(static_b, carry_b, xs_b)
+            # with the number of steps that evicted
+            self.batched.append((inputs, int((out[1][4] >= 0).any(dim=-1).sum())))
+            return out
+
+        def forced(static, carry, xs):
+            self.forced.append(tuple(tuple(t.clone() for t in part)
+                                     for part in (static, carry, xs)))
+            return orig_forced(static, carry, xs)
+
+        self.metrics.incr_counter = count
+        # kernels.place_scan launches through kernels.place_scan_batched
+        k.place_scan_batched, k.forced_eval = batched, forced
+        self.logger.addHandler(self.handler)
+        self.level = self.logger.level
+        self.logger.setLevel(logging.DEBUG)
+        k.reset_launch_counts()
+        return self
+
+    def __exit__(self, *exc):
+        self.launches = dict(self.kernels.LAUNCHES)
+        k = self.kernels
+        self.metrics.incr_counter, k.place_scan_batched, k.forced_eval = self.orig
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+        return False
+
+    def count(self, name):
+        return self.counted.count(name)
+
+
+def phase_system_server(kernels, seed: int):
+    """The system slice through the port's Server with deterministic=True
+    (int arm), 16 Workers, BASELINE config 4's fleet at N_NODES nodes and
+    the jobs of ``preempt_jobs`` registered phase by phase, each phase
+    waited on before the next; service preemption is switched on by a
+    raft-applied SchedulerConfiguration before (c). Returns the record
+    and the spy (the main path's launches and their inputs)."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.server.fsm import NODE_REGISTER, SCHEDULER_CONFIG
+    from nomad_tpu_torch.server.server import Server, ServerConfig
+    from nomad_tpu_torch.server.worker import Worker
+    from nomad_tpu_torch.structs import structs
+    from nomad_tpu_torch.structs.funcs import allocs_fit
+    from nomad_tpu_torch.utils import phases
+
+    server = Server(ServerConfig(num_schedulers=0, deterministic=True, device=DEVICE),
+                    name="smoke-system")
+    rec = {"phases": {}}
+    try:
+        server.start()
+        server.raft_apply(SCHEDULER_CONFIG, preemption_config(structs, service=False))
+        nodes = config4_nodes(mock, N_NODES)
+        for n in nodes:
+            server.raft_apply(NODE_REGISTER, n)
+        gpu_nodes = sum(1 for n in nodes if n.node_resources.devices)
+        for i in range(SERVER_WORKERS):
+            w = Worker(server, i)
+            server.workers.append(w)
+            w.start()
+        jobs = preempt_jobs(mock, structs, N_NODES)
+        state = server.fsm.state
+
+        def running(job_id):
+            return sum(1 for a in state.allocs_by_job("default", job_id, True)
+                       if a.desired_status == structs.ALLOC_DESIRED_RUN and not a.terminal_status())
+
+        want = {j.id: (N_NODES if j.id == "sys-mid" else gpu_nodes if j.id == "sys-gpu"
+                       else j.task_groups[0].count) for _, j, _ in jobs}
+        with _Spy(kernels) as spy:
+            phases.enable()
+            t_all = phases.now()
+            wall_all = time.perf_counter()
+            for phase in ("a", "b", "c", "d"):
+                if phase == "c":
+                    server.raft_apply(SCHEDULER_CONFIG, preemption_config(structs, service=True))
+                batch = [j for ph, j, _ in jobs if ph == phase]
+                t0 = time.perf_counter()
+                for job in batch:
+                    server.register_job(job)
+                deadline = time.monotonic() + 300
+                while (any(running(j.id) < want[j.id] for j in batch)
+                       and time.monotonic() < deadline):
+                    time.sleep(0.02)
+                got = {j.id: running(j.id) for j in batch}
+                wall = time.perf_counter() - t0
+                drained = server.drain_evals(120.0)
+                if any(got[j.id] < want[j.id] for j in batch) or not drained:
+                    raise AssertionError(f"system slice ({phase}): running {got} of {want}, "
+                                         f"broker drained: {drained}")
+                rec["phases"][phase] = {"wall_s": wall, "running": got,
+                                        "launches": dict(kernels.LAUNCHES)}
+            wall_s = time.perf_counter() - wall_all
+            shares = phases.wall_shares(t_all, phases.now())
+            phases.disable()
+        # every preempted alloc is evicted in the FSM; no node overcommitted
+        allocs = list(state.allocs())
+        by_id = {a.id: a for a in allocs}
+        preempted = [v for a in allocs for v in (a.preempted_allocations or [])]
+        not_evicted = [v for v in preempted
+                       if by_id.get(v) is None or by_id[v].desired_status != structs.ALLOC_DESIRED_EVICT]
+        by_job_pre = {}
+        for a in allocs:
+            if a.preempted_allocations:
+                by_job_pre[a.job_id] = by_job_pre.get(a.job_id, 0) + len(a.preempted_allocations)
+        if not preempted or not_evicted:
+            raise AssertionError(f"system slice: {len(preempted)} preemptions, "
+                                 f"{len(not_evicted)} not evicted in the FSM")
+        for job_id in ("sys-mid", "svc-high", "sys-gpu"):
+            if not by_job_pre.get(job_id):
+                raise AssertionError(f"system slice: {job_id} preempted nothing")
+        by_node = {}
+        for a in allocs:
+            if a.desired_status == structs.ALLOC_DESIRED_RUN and not a.terminal_status():
+                by_node.setdefault(a.node_id, []).append(a)
+        over = [n.name for n in state.nodes() if not allocs_fit(n, by_node.get(n.id, []))[0]]
+        if over:
+            raise AssertionError(f"system slice: {len(over)} nodes overcommitted, e.g. {over[:3]}")
+        # the fill lost exactly what was preempted of it, nothing else
+        evicted_of = {}
+        for v in preempted:
+            evicted_of[by_id[v].job_id] = evicted_of.get(by_id[v].job_id, 0) + 1
+        for _, j, _ in jobs:
+            if j.id.startswith("fill-") and running(j.id) < j.task_groups[0].count - evicted_of.get(j.id, 0):
+                raise AssertionError(f"system slice: {j.id} runs {running(j.id)} allocs, "
+                                     f"{evicted_of.get(j.id, 0)} preempted of {j.task_groups[0].count}")
+        unported = sum(1 for c in spy.counted if "unported" in c)
+        fallback = spy.count("nomad.tpu_engine.fallback")
+        if unported or spy.launches["forced_eval"] < 1 or spy.launches["place_scan_has_pre"] < 2:
+            raise AssertionError(f"system slice: unported={unported} launches={spy.launches}")
+        rec.update({
+            "wall_s": wall_s, "launches": spy.launches, "unported": unported,
+            "fallback": fallback, "fallback_reasons": sorted(set(spy.reasons)),
+            "preempt_pass": spy.count("nomad.tpu_engine.system_preempt_pass"),
+            "handled": spy.count("nomad.tpu_engine.handled"),
+            "preemptions": len(preempted), "preempted_by_job": by_job_pre,
+            "evicted_of_job": evicted_of, "nodes_checked": len(state.nodes()),
+            "phases_s": shares, "batcher": dict(server.device_batcher.stats),
+        })
+        return rec, spy
+    finally:
+        server.stop()
+
+
+def phase_preempt_harness(kernels, seed: int):
+    """Victim for victim: the system slice's evals (a)-(c) through the
+    port's Harness one at a time at N_NODES nodes, deterministic, each
+    placed by ``tpu_binpack`` on the card and by the host ``binpack``
+    stack from the same state. Plans, eviction sets (the same victim
+    allocs, in the same order on each preemptor) and eval outcomes must
+    be equal. Returns per-eval records."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.structs import structs
+
+    h = Harness(device=DEVICE)
+    h.state.scheduler_set_config(h.next_index(), preemption_config(structs, service=False))
+    for n in config4_nodes(mock, N_NODES):
+        h.state.upsert_node(h.next_index(), n)
+
+    def place(harness, job, kind):
+        harness.state.upsert_job(harness.next_index(), copy.deepcopy(job))
+        ev = structs.Evaluation(priority=job.priority, type=kind,
+                                triggered_by=structs.EVAL_TRIGGER_JOB_REGISTER,
+                                job_id=job.id, namespace=job.namespace)
+        n_plans = len(harness.plans)
+        t0 = time.perf_counter()
+        harness.process(kind, ev)
+        ms = (time.perf_counter() - t0) * 1000.0
+        plans = harness.plans[n_plans:]
+        assign = {(nid, a.name) for p in plans for nid, v in p.node_allocation.items() for a in v}
+        victims = {nid: sorted(a.id for a in v) for p in plans
+                   for nid, v in p.node_preemptions.items()}
+        order = {(nid, a.name): list(a.preempted_allocations) for p in plans
+                 for nid, v in p.node_allocation.items() for a in v if a.preempted_allocations}
+        upd = harness.evals[-1]
+        return {"job": job.id, "wall_ms": ms, "assign": assign, "victims": victims,
+                "order": order, "status": upd.status,
+                "failed_tgs": sorted(upd.failed_tg_allocs or {})}
+
+    records = []
+    with _Spy(kernels) as spy:
+        for phase, job, kind in preempt_jobs(mock, structs, N_NODES):
+            if phase == "d":
+                break
+            service_on = phase == "c"
+            if service_on:
+                h.state.scheduler_set_config(h.next_index(), preemption_config(structs, True))
+            snap = h.state.snapshot()
+            dev = place(h, job, kind)
+            oracle = Harness(state=snap, device=DEVICE)
+            oracle._next_index = h._next_index
+            cfg = preemption_config(structs, service_on)
+            cfg.scheduler_algorithm = "binpack"
+            oracle.state.scheduler_set_config(oracle.next_index(), cfg)
+            host = place(oracle, job, kind)
+            for key in ("assign", "victims", "order", "status", "failed_tgs"):
+                if dev[key] != host[key]:
+                    raise AssertionError(f"harness {job.id}: {key} differs between tpu_binpack "
+                                         f"and host binpack")
+            records.append({"job": job.id, "phase": phase, "placed": len(dev["assign"]),
+                            "preempted": sum(len(v) for v in dev["victims"].values()),
+                            "device_wall_ms": dev["wall_ms"], "host_wall_ms": host["wall_ms"],
+                            "service_on": service_on})
+    if not any(r["preempted"] for r in records if r["phase"] == "b") or \
+            not any(r["preempted"] for r in records if r["phase"] == "c"):
+        raise AssertionError(f"harness: the preempting evals evicted nothing: {records}")
+    return records, spy
 
 
 def c1m_templates():
@@ -292,8 +752,9 @@ def phase_server(kernels, deterministic: bool, seed: int):
     """The server slice at ServerConfig defaults (deterministic=False: the
     float arm) or with deterministic=True (the int arm): 5,000 C1M nodes,
     num_schedulers=0 plus 16 explicit Workers (as bench.py bench_system),
-    the C1M job mix cut to SERVER_PLACEMENTS. Returns the run's record
-    and the inputs of its first and last batched launch."""
+    the C1M job mix cut to SERVER_PLACEMENTS. Returns the run's record,
+    the inputs of its first and last batched launch and those of its
+    forced-node launches (the float run's system job)."""
     import numpy as np
 
     from nomad_tpu_torch import mock
@@ -302,28 +763,12 @@ def phase_server(kernels, deterministic: bool, seed: int):
     from nomad_tpu_torch.server.worker import Worker
     from nomad_tpu_torch.structs import structs
     from nomad_tpu_torch.structs.funcs import allocs_fit
-    from nomad_tpu_torch.utils import metrics, phases
+    from nomad_tpu_torch.utils import phases
 
     arm = "int" if deterministic else "float"
     rng = np.random.default_rng(seed)
     server = Server(ServerConfig(num_schedulers=0, deterministic=deterministic,
                                  device=DEVICE), name=f"smoke-{arm}")
-    counted = []
-    orig_incr = metrics.incr_counter
-    orig_batched = kernels.place_scan_batched
-    launches_in = []
-
-    def count(name, value=1.0):
-        counted.append(name)
-        orig_incr(name, value)
-
-    def capture(static_b, carry_b, xs_b):
-        launches_in.append(tuple(tuple(t.clone() for t in part)
-                                 for part in (static_b, carry_b, xs_b)))
-        if len(launches_in) > 2:
-            del launches_in[1]  # keep the first and the latest
-        return orig_batched(static_b, carry_b, xs_b)
-
     try:
         server.start()
         for i in range(N_NODES):
@@ -340,10 +785,9 @@ def phase_server(kernels, deterministic: bool, seed: int):
             w = Worker(server, i)
             server.workers.append(w)
             w.start()
-        kernels.reset_launch_counts()
-        metrics.incr_counter, kernels.place_scan_batched = count, capture
         phases.enable()
-        try:
+        sys_rec = None
+        with _Spy(kernels) as spy:
             t0 = phases.now()
             wall0 = time.perf_counter()
             for job in jobs:
@@ -356,10 +800,27 @@ def phase_server(kernels, deterministic: bool, seed: int):
             placed = state.count_allocs_desired_run()
             drained = server.drain_evals(60.0)
             shares = phases.wall_shares(t0, phases.now())
-        finally:
-            metrics.incr_counter, kernels.place_scan_batched = orig_incr, orig_batched
-            phases.disable()
-        launches = dict(kernels.LAUNCHES)
+            if not deterministic:
+                # one system job after the mix: the forced-node kernel's
+                # float arm on the default path (every C1M node is an
+                # eligible dc1/linux node)
+                sysjob = mock.system_job()
+                sysjob.id = "sys-float"
+                sysjob.task_groups[0].tasks[0].resources = structs.Resources(cpu=100, memory_mb=64)
+                before = kernels.LAUNCHES["forced_eval_f32"]
+                t_sys = time.perf_counter()
+                server.register_job(sysjob)
+                while state.count_allocs_desired_run() < expected + N_NODES and \
+                        time.monotonic() < deadline:
+                    time.sleep(0.02)
+                sys_rec = {"wall_s": time.perf_counter() - t_sys,
+                           "placed": state.count_allocs_desired_run() - expected,
+                           "forced_eval_f32_launches": kernels.LAUNCHES["forced_eval_f32"] - before}
+                drained = drained and server.drain_evals(60.0)
+                if sys_rec["placed"] != N_NODES or sys_rec["forced_eval_f32_launches"] < 1:
+                    raise AssertionError(f"server {arm}: system job {sys_rec}")
+        phases.disable()
+        launches, counted = spy.launches, spy.counted
         stats = dict(server.device_batcher.stats)
         profile = server.device_batcher.dispatch_profile()
         if placed != expected or not drained:
@@ -369,7 +830,7 @@ def phase_server(kernels, deterministic: bool, seed: int):
         by_node = {}
         for a in state.allocs():
             if a.desired_status == structs.ALLOC_DESIRED_RUN and not a.terminal_status():
-                per_job[a.job_id] += 1
+                per_job[a.job_id] = per_job.get(a.job_id, 0) + 1
                 by_node.setdefault(a.node_id, []).append(a)
         short = [j.id for j in jobs if per_job[j.id] != j.task_groups[0].count]
         if short:
@@ -392,9 +853,12 @@ def phase_server(kernels, deterministic: bool, seed: int):
                "evals_handled": counted.count("nomad.tpu_engine.handled"),
                "unported": unported, "fallback": fallback, "mean_eval_batch": mean_batch,
                "batcher": stats, "dispatch_profile": profile, "phases_s": shares,
-               "nodes_checked": len(state.nodes())}
-        return rec, list(launches_in)
+               "nodes_checked": len(state.nodes()), "system_job": sys_rec}
+        # the inputs of the first and the last batched launch, and of
+        # every forced-node launch
+        return rec, [spy.batched[0][0], spy.batched[-1][0]], spy.forced
     finally:
+        phases.disable()
         server.stop()
 
 
@@ -537,6 +1001,57 @@ def phase_slice(kernels, seed: int):
     return records, captured, launches
 
 
+def bound(nbytes, ops):
+    """The least time in ms for the work on this card's published peaks,
+    and which of the two bounds it."""
+    b_bytes, b_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations")
+
+
+def replay_batched(kernels, step, parity, sb, cb, xb, what, float_arm):
+    """A captured K3 launch replayed: kernel vs plain (int bit for bit,
+    float within the bound); returns (kernel ms, plain ms, bound ms,
+    bound by, worst |dscore|)."""
+    k_out = kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb)
+    stats_b = []
+    p_out, p_ms = timed_wall(lambda: plain_batched(step, sb, cb, xb, stats_b))
+    worst = 0
+    for b in range(sb[0].shape[0]):
+        got = (tuple(t[b] for t in k_out[0]), tuple(y[b] for y in k_out[1]))
+        ref = (tuple(t[b] for t in p_out[0]), tuple(y[b] for y in p_out[1]))
+        if float_arm:
+            worst = max(worst, parity.check_float_scan(ref, got, xb[0][b], f"{what} eval {b}")[1])
+        else:
+            worst = max(worst, compare(got, ref, f"{what} eval {b}"))
+    k_ms = cuda_ms(lambda: kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb))
+    nbytes, ops = kernels.place_scan_batched_work(sb, cb, xb, k_out[1][3], stats_b)
+    b_ms, b_by = bound(nbytes, ops)
+    real = int((~k_out[1][3]).sum())
+    evicting = int((k_out[1][4] >= 0).any(dim=-1).sum())
+    log(f"{what}: B={sb[0].shape[0]} n_pad={sb[0].shape[1]} P={xb[0].shape[1]} "
+        f"C={sb[20].shape[2]} steps_run={real} evicting_steps={evicting} equal=yes "
+        f"kernel_ms={k_ms:.3f} plain_ms={p_ms:.1f} bytes={nbytes} ops={ops} "
+        f"bound_ms={b_ms:.6f} ({b_by})")
+    return k_ms, p_ms, b_ms, b_by, worst
+
+
+def replay_forced(kernels, forced, s, c, x, what):
+    """A captured K4 launch replayed: kernel vs plain, bit for bit."""
+    import torch
+
+    got = kernels.forced_eval(s, c, x)
+    plain, p_ms = timed_wall(lambda: forced.forced_eval(s, c, x))
+    if not all(a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, plain)):
+        raise AssertionError(f"{what}: kernel differs from plain")
+    k_ms = cuda_ms(lambda: kernels.forced_eval(s, c, x), reps=21)
+    nbytes, ops = kernels.forced_eval_work(s, c, x)
+    b_ms, b_by = bound(nbytes, ops)
+    log(f"{what}: P={x[0].shape[0]} n_pad={s[0].shape[0]} D={s[0].shape[1]} "
+        f"placed={int((got[0] >= 0).sum())} equal=yes kernel_ms={k_ms:.4f} plain_ms={p_ms:.2f} "
+        f"bytes={nbytes} ops={ops} bound_ms={b_ms:.6f} ({b_by})")
+    return k_ms, p_ms, b_ms, b_by, 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -552,8 +1067,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from nomad_tpu_torch.tpu import convert, engine, kernels, parity, step
+    from nomad_tpu_torch.tpu import convert, engine, forced, kernels, parity, step
 
+    t_start = time.perf_counter()
     card = gpu_line()
     log(f"gpu: {card}")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
@@ -566,9 +1082,16 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {name}: {line.strip()}")
 
+    def stamp(what):
+        log(f"[{time.perf_counter() - t_start:.1f}s] {what}")
+
     worst = phase_variants(kernels, step, convert, engine)
     worst_f = phase_float_variants(kernels, step, convert, engine)
     phase_batched(kernels, convert, engine)
+    stamp("scan variants done")
+    phase_forced(kernels, convert, engine, forced)
+    phase_has_pre(kernels, step, convert, engine)
+    stamp("K4 and has_pre checks done")
 
     dev_records, captured, launches = phase_slice(kernels, args.seed)
     for rec in dev_records:
@@ -582,27 +1105,52 @@ def main() -> int:
     total_ms = sum(r["wall_ms"] for r in dev_records)
     log(f"slice total: {total_placed} placements in {total_ms:.1f} ms "
         f"({total_placed / total_ms * 1000:.1f} placements/s) on {card}")
+    stamp("Harness slice done")
 
     servers = {}
     for deterministic in (False, True):
-        rec, launch_inputs = phase_server(kernels, deterministic, args.seed)
-        servers[rec["arm"]] = (rec, launch_inputs)
+        rec, launch_inputs, forced_inputs = phase_server(kernels, deterministic, args.seed)
+        servers[rec["arm"]] = (rec, launch_inputs, forced_inputs)
         log(f"server {rec['arm']}: {rec['placements']} placements of {rec['jobs']} jobs in "
             f"{rec['wall_s'] * 1000:.1f} ms ({rec['placements_per_s']:.1f} placements/s) on {card}; "
             f"launches {json.dumps(rec['launches'], sort_keys=True)}; evals handled "
             f"{rec['evals_handled']}, unported {rec['unported']}, fallback {rec['fallback']}; "
             f"mean eval batch {rec['mean_eval_batch']:.3f}; {rec['nodes_checked']} nodes, none "
             f"overcommitted")
+        if rec["system_job"]:
+            log(f"  system job after the mix: {json.dumps(rec['system_job'], sort_keys=True)}")
         log(f"  batcher {json.dumps(rec['batcher'], sort_keys=True)}")
         log(f"  dispatch_profile {json.dumps(rec['dispatch_profile'], sort_keys=True)}")
         log(f"  phases_s {json.dumps(rec['phases_s'], sort_keys=True)}")
+        stamp(f"server {rec['arm']} done")
+
+    sys_rec, sys_spy = phase_system_server(kernels, args.seed)
+    log(f"system slice (deterministic): {N_NODES} config-4 nodes, wall {sys_rec['wall_s']:.3f} s "
+        f"on {card}; launches {json.dumps(sys_rec['launches'], sort_keys=True)}; handled "
+        f"{sys_rec['handled']}, preempt passes {sys_rec['preempt_pass']}, unported "
+        f"{sys_rec['unported']}, fallback {sys_rec['fallback']} "
+        f"(reasons: {sys_rec['fallback_reasons']}); {sys_rec['preemptions']} preemptions "
+        f"committed and evicted in the FSM, by job {json.dumps(sys_rec['preempted_by_job'], sort_keys=True)}, "
+        f"of job {json.dumps(sys_rec['evicted_of_job'], sort_keys=True)}; "
+        f"{sys_rec['nodes_checked']} nodes, none overcommitted")
+    for phase, prec in sys_rec["phases"].items():
+        log(f"  ({phase}) wall_s={prec['wall_s']:.3f} running {json.dumps(prec['running'], sort_keys=True)} "
+            f"launches so far {json.dumps(prec['launches'], sort_keys=True)}")
+    log(f"  batcher {json.dumps(sys_rec['batcher'], sort_keys=True)}")
+    log(f"  phases_s {json.dumps(sys_rec['phases_s'], sort_keys=True)}")
+    stamp("system slice done")
+
+    h_records, h_spy = phase_preempt_harness(kernels, args.seed)
+    for r in h_records:
+        log(f"harness {r['job']:12s} ({r['phase']}) placed={r['placed']} preempted={r['preempted']} "
+            f"tpu_binpack_wall_ms={r['device_wall_ms']:.1f} host_binpack_wall_ms={r['host_wall_ms']:.1f} "
+            f"plans and eviction sets equal: yes")
+    log(f"harness launches {json.dumps(h_spy.launches, sort_keys=True)}")
+    stamp("victim-for-victim Harness done")
 
     # the main paths' own kernel inputs, replayed: kernel vs plain, times, bound
-    def bound(nbytes, ops):
-        b_bytes, b_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
-        return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations")
-
-    rows = {"place_scan": [], "place_scan_f32": []}
+    rows = {name: [] for name in ("place_scan", "place_scan_f32", "place_scan_has_pre",
+                                  "forced_eval", "forced_eval_f32")}
     for i, (n_pad, s, c, x) in enumerate(captured):
         k_out = run_kernel(kernels, n_pad, s, c, x)
         p_out, p_ms = timed_wall(lambda: run_plain(step, n_pad, s, c, x))
@@ -614,52 +1162,71 @@ def main() -> int:
         log(f"main-path eval {i}: n_pad={n_pad} P={x[0].shape[0]} S={s[10].shape[1]} "
             f"aff={s[4].shape[0] > 0} evict={x[3].shape[1] > 0} equal=yes kernel_ms={k_ms:.3f} "
             f"plain_ms={p_ms:.1f} bytes={nbytes} ops={ops} bound_ms={b_ms:.6f} ({b_by})")
-    for arm, (rec, launch_inputs) in servers.items():
+    for arm, (rec, launch_inputs, forced_inputs) in servers.items():
         kernel = "place_scan" if arm == "int" else "place_scan_f32"
-        for which, (sb, cb, xb) in zip(("first", "last"), launch_inputs):
-            k_out = kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb)
-            p_out, p_ms = timed_wall(lambda: plain_batched(step, sb, cb, xb))
-            what = f"server {arm} {which} launch"
-            for b in range(sb[0].shape[0]):
-                got = (tuple(t[b] for t in k_out[0]), tuple(y[b] for y in k_out[1]))
-                ref = (tuple(t[b] for t in p_out[0]), tuple(y[b] for y in p_out[1]))
-                if arm == "int":
-                    worst = max(worst, compare(got, ref, f"{what} eval {b}"))
-                else:
-                    worst_f = max(worst_f, parity.check_float_scan(
-                        ref, got, xb[0][b], f"{what} eval {b}")[1])
-            k_ms = cuda_ms(lambda: kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb))
-            nbytes, ops = kernels.place_scan_batched_work(sb, cb, xb, k_out[1][3])
-            b_ms, b_by = bound(nbytes, ops)
+        # the last batched launch only (PRs 1-2 also replayed the first)
+        for which, (sb, cb, xb) in (("last", launch_inputs[-1]),):
+            k_ms, p_ms, b_ms, b_by, err = replay_batched(
+                kernels, step, parity, sb, cb, xb, f"server {arm} {which} launch", arm == "float")
+            if arm == "int":
+                worst = max(worst, err)
+            else:
+                worst_f = max(worst_f, err)
             rows[kernel].append((k_ms, p_ms, b_ms, b_by))
-            real = int((~k_out[1][3]).any(dim=1).sum())
-            log(f"{what}: B={sb[0].shape[0]} (evals with work {real}) n_pad={sb[0].shape[1]} "
-                f"P={xb[0].shape[1]} equal=yes kernel_ms={k_ms:.3f} plain_ms={p_ms:.1f} "
-                f"bytes={nbytes} ops={ops} bound_ms={b_ms:.6f} ({b_by})")
+        for i, (s, c, x) in enumerate(forced_inputs):
+            name = "forced_eval" if arm == "int" else "forced_eval_f32"
+            rows[name].append(replay_forced(kernels, forced, s, c, x,
+                                            f"server {arm} K4 launch {i}")[:4])
+    # the system slice: its K4 launches, and the has_pre launches with the
+    # most steps (the fill's scans are held by the int server's replays)
+    for i, (s, c, x) in enumerate(sys_spy.forced):
+        rows["forced_eval"].append(replay_forced(kernels, forced, s, c, x,
+                                                 f"system slice K4 launch {i}")[:4])
+    pre = [(launch, n) for launch, n in sys_spy.batched if launch[0][20].shape[2] > 0]
+    pre.sort(key=lambda item: -item[1])
+    for i, ((sb, cb, xb), _) in enumerate(pre[:2]):
+        rows["place_scan_has_pre"].append(replay_batched(
+            kernels, step, parity, sb, cb, xb, f"system slice has_pre launch {i}", False)[:4])
+    stamp("replays done")
 
     mean = lambda v: sum(v) / len(v)  # noqa: E731
     main_launches = {
-        "place_scan": launches + servers["int"][0]["launches"]["place_scan"],
+        "place_scan": (launches + servers["int"][0]["launches"]["place_scan"]
+                       + sys_rec["launches"]["place_scan"]
+                       - sys_rec["launches"]["place_scan_has_pre"]),
         "place_scan_f32": servers["float"][0]["launches"]["place_scan_f32"],
+        "place_scan_has_pre": sys_rec["launches"]["place_scan_has_pre"],
+        "forced_eval": sys_rec["launches"]["forced_eval"],
+        "forced_eval_f32": servers["float"][0]["launches"]["forced_eval_f32"],
     }
+    replaces = {
+        "place_scan": "nomad_tpu/tpu/engine.py:213",
+        "place_scan_f32": "nomad_tpu/tpu/engine.py:575",
+        "place_scan_has_pre": "nomad_tpu/tpu/engine.py:383",
+        "forced_eval": "nomad_tpu/tpu/engine.py:888",
+        "forced_eval_f32": "nomad_tpu/tpu/engine.py:888",
+    }
+    errs = {"place_scan": worst, "place_scan_f32": worst_f, "place_scan_has_pre": 0,
+            "forced_eval": 0, "forced_eval_f32": 0}
     entries = []
-    for name, err in (("place_scan", worst), ("place_scan_f32", worst_f)):
-        r = rows[name]
-        b_ms = mean([x[2] for x in r])
+    for name, r in rows.items():
+        if not r:
+            raise AssertionError(f"no main-path launch of {name} to replay")
         entries.append({
             "name": name,
             "route": "cuda",
-            "source": "nomad_tpu_torch/tpu/csrc/place_scan.cu",
-            "replaces": ("nomad_tpu/tpu/engine.py:213" if name == "place_scan"
-                         else "nomad_tpu/tpu/engine.py:575"),
+            "source": ("nomad_tpu_torch/tpu/csrc/forced_eval.cu" if name.startswith("forced")
+                       else "nomad_tpu_torch/tpu/csrc/place_scan.cu"),
+            "replaces": replaces[name],
             "launches": main_launches[name],
-            "max_abs_err": err,
+            "max_abs_err": errs[name],
             "ms": mean([x[0] for x in r]),
             "plain_ms": mean([x[1] for x in r]),
-            "bound_ms": b_ms,
+            "bound_ms": mean([x[2] for x in r]),
             "bound_by": r[0][3],
             "library_ms": None,
         })
+    stamp("all phases passed")
     result = {"kernels": entries}
     log(json.dumps(result))
     log(f"card: {card}")

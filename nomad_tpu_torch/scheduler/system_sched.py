@@ -4,7 +4,8 @@ Semantics follow reference ``scheduler/system_sched.go`` — Process :54,
 computeJobAllocs :183, computePlacements :268, addBlocked :406.
 
 Copied from ``nomad_tpu/scheduler/system_sched.py``
-into the PyTorch port, which imports nothing of ``nomad_tpu``.
+into the PyTorch port, which imports nothing of ``nomad_tpu``. One
+addition: the ``device`` attribute, which the port's engine runs on.
 """
 from __future__ import annotations
 
@@ -79,6 +80,9 @@ class SystemScheduler:
         self.state = state
         self.planner = planner
         self.deterministic = deterministic
+        # torch device of the placement engine (tpu/integration.py):
+        # CUDA unless the caller asks for the CPU
+        self.device = "cuda"
 
         self.eval: Optional[Evaluation] = None
         self.job = None

@@ -4,12 +4,17 @@
 //   _make_step          (K1, :213)  one placement over all N nodes
 //   _build_place_scan   (K2, :869)  lax.scan of the step over P placements
 //   _build_batched_scan (K3, :1000) vmap of the scan over B evals
-// in both arms of the step, without the preemption branch:
+// in both arms of the step:
 //   int   (place_scan_launch, T = int32_t): the exact-integer spec, int64
-//         score60 selection (engine.py:471-574);
+//         score60 selection (engine.py:471-574), and the preemption
+//         branch (has_pre, engine.py:383-409 and :761-832) with the
+//         greedy sweep (K6), the second pass (K7) and isqrt/coord_q (K8)
+//         of nomad_tpu/tpu/preempt.py:171-271 as device functions
+//         (common.cuh);
 //   float (place_scan_f32_launch, T = float): f32 scores from pow(10, free)
 //         binpack, anti-affinity, the reschedule penalty and the spread
-//         boosts (engine.py:575-639).
+//         boosts (engine.py:575-639). The reference never builds a
+//         candidate axis in this arm; the instantiation has no branch.
 // The bit-packed lanes of nomad_tpu/tpu/intscore.py (K9) are not needed
 // here: counts and flags stay unpacked (registers, a per-eval scratch
 // row), and the results are the same bits.
@@ -28,6 +33,22 @@
 //      (max score, min rank, first index) selection as a block reduction;
 //   4. the carry update for the chosen node (one thread).
 // The carry is updated in place in device memory.
+//
+// Preemption (has_pre). The JAX step runs the greedy sweep on every node
+// of every step. Here the thread that owns node i runs it over its own C
+// <= 16 slots (an alive bit mask, needed and avail in registers) only
+// where it can change the result: a real node, feasible by features,
+// distinct_hosts, the forced node and distinct_property, that does not
+// fit outright, and whose alive eligible slots together could meet the
+// ask. Everywhere else cap_ok = fits | met is decided without it, so the
+// outputs are the JAX step's. After selection the
+// committing thread recomputes the greedy on the chosen row (it is
+// deterministic, so the same round order comes out; no [N, C] scratch),
+// runs the second pass and commits: the freed capacity credits used
+// after the score terms, the Q27 e_base product over the kept slots in
+// slot order, and the pre_alive / pre_remaining / pre_counts carries.
+// The per-group preemption counts (<= 64) are read from shared memory,
+// loaded once per step.
 //
 // What bounds it on an H100: not bytes or operations (one eval at
 // N = 5,120 moves well under a megabyte and does ~10^8 operations per
@@ -51,22 +72,19 @@
 #include <cub/block/block_reduce.cuh>
 #include <cub/block/block_scan.cuh>
 
+#include "common.cuh"
+
+using namespace nomad;
+
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kMaxSkip = 3;
-constexpr int kE27Bits = 27;
-constexpr long long kE27One = 1LL << kE27Bits;
-constexpr int kRecipBits = 45;
-constexpr int kTermBits = 30;
-constexpr int kRsh = kRecipBits - kTermBits;
-constexpr long long kTermOne = 1LL << kTermBits;
 constexpr long long kBigFp = 1LL << 44;
 constexpr long long kLarge = 1LL << 40;
 constexpr long long kNegInf = -(1LL << 61);  // jnp.iinfo(int64).min // 4
 constexpr int kInt32Max = 2147483647;
 constexpr float kF32Big = 3.40282347e+38f / 16.0f;  // finfo(f32).max / 16
-constexpr float kEps = 1e-9f;
 
 }  // namespace
 
@@ -77,6 +95,7 @@ constexpr float kEps = 1e-9f;
 struct ScanArgs {
   int B, N, D, G, S, V, K, DP, V2, P;
   int has_reserved, has_aff, has_evict, has_forced;
+  int has_pre, C, GP;  // candidate slots per node (<= 16), count groups (<= 64)
   // static
   const void* totals;             // T [B,N,D]
   const void* reserved;           // T [B,N,D] when has_reserved
@@ -124,10 +143,48 @@ struct ScanArgs {
   uint8_t* skipped;               // [B,P]
   // scratch
   void* scr_final;                // S [B,N]
-  uint8_t* scr_flags;             // [B,N] bit0 feasible&valid, bit1 low
+  uint8_t* scr_flags;             // [B,N] bit0 feasible&valid, bit1 low, bit2 fits
+  // preemption (has_pre, int arm): static, carry, output
+  const int32_t* pre_res;         // [B,N,C,4]
+  const int32_t* pre_prio;        // [B,N,C]
+  const uint8_t* pre_elig;        // [B,N,C]
+  const int32_t* pre_mp;          // [B,N,C]
+  const int32_t* pre_gid;         // [B,N,C]
+  const int32_t* pre_evf;         // [B,N,C,2]
+  uint8_t* pre_alive;             // [B,N,C]
+  long long* pre_remaining;       // [B,N,3]
+  int32_t* pre_counts;            // [B,GP]
+  int32_t* evict_out;             // [B,P,C] rank of each evicted slot; the
+                                  // wrapper fills -1, the kernel writes ranks
 };
 
 namespace {
+
+// The penalty of each slot of row i from the step's preemption counts,
+// and the row's candidate view for the greedy (int arm).
+__device__ __forceinline__ PreRow pre_row(const ScanArgs& a, size_t bNC, size_t bN, int i,
+                                          const int* s_pre_counts, long long* pen) {
+  const int C = a.C;
+  const size_t base = bNC + (size_t)i * C;
+  PreRow row;
+  row.C = C;
+  row.res = a.pre_res + base * 4;
+  row.prio = a.pre_prio + base;
+  row.pen = pen;
+  row.alive = 0;
+  for (int c = 0; c < C; ++c) {
+    const int gid = a.pre_gid[base + c];
+    const int mp = a.pre_mp[base + c];
+    const int num = (gid >= 0 && gid < a.GP) ? s_pre_counts[gid] : 0;
+    pen[c] = (mp > 0 && num >= mp) ? (long long)((num + 1) - mp) * kPenaltyUnit * kCqOne : 0;
+    if (a.pre_alive[base + c] && a.pre_elig[base + c]) row.alive |= 1u << c;
+  }
+  const long long* rem = a.pre_remaining + (bN + i) * 3;
+  row.remaining[0] = rem[0];
+  row.remaining[1] = rem[1];
+  row.remaining[2] = rem[2];
+  return row;
+}
 
 // Per arm: the score type, the spread count type, and the score given to
 // non-candidates (engine.py:573 and :638).
@@ -144,16 +201,6 @@ template <> struct Arm<float> {
   static constexpr bool kFloat = true;
   static __device__ __forceinline__ Score neg_inf() { return -INFINITY; }
 };
-
-__device__ __forceinline__ long long floordiv(long long a, long long b) {
-  long long q = a / b;
-  long long r = a % b;
-  if (r != 0 && ((r < 0) != (b < 0))) --q;
-  return q;
-}
-
-// jnp.maximum / torch.maximum of x and a constant: NaN in x stays NaN
-__device__ __forceinline__ float max_keep_nan(float x, float c) { return x < c ? c : x; }
 
 template <typename Score>
 struct Best {
@@ -206,17 +253,6 @@ struct SpreadStat {
   int has_entries;
 };
 
-__device__ __forceinline__ long long e_sel(const int32_t* e_base, const int32_t* e_ask_g,
-                                           int i, int d) {
-  return ((long long)e_base[i * 2 + d] * (long long)e_ask_g[i * 2 + d]) >> kE27Bits;
-}
-
-// x + y and x - y for the carry: int32 adds, or f32 adds rounded alone
-__device__ __forceinline__ int32_t add_t(int32_t x, int32_t y) { return x + y; }
-__device__ __forceinline__ float add_t(float x, float y) { return __fadd_rn(x, y); }
-__device__ __forceinline__ int32_t sub_t(int32_t x, int32_t y) { return x - y; }
-__device__ __forceinline__ float sub_t(float x, float y) { return __fsub_rn(x, y); }
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads) place_scan_kernel(const ScanArgs a) {
   using Score = typename Arm<T>::Score;
@@ -233,6 +269,7 @@ __global__ void __launch_bounds__(kThreads) place_scan_kernel(const ScanArgs a) 
     typename ScanPair::TempStorage scan;
   } tmp;
   __shared__ Counts s_counts;
+  __shared__ int s_pre_counts[kGpMax];
   extern __shared__ __align__(8) unsigned char s_raw[];
   SpreadStat<Count>* s_stat = reinterpret_cast<SpreadStat<Count>*>(s_raw);  // [S]
 
@@ -286,6 +323,8 @@ __global__ void __launch_bounds__(kThreads) place_scan_kernel(const ScanArgs a) 
   const int n_real = a.n_real[b];
   const int nr = n_real > 1 ? n_real : 1;
   const int invalid_bucket = V - 1;
+  const bool has_pre = !kFloat && a.has_pre;
+  const size_t bNC = bN * (size_t)a.C;
 
   for (int p = 0; p < P; ++p) {
     // All threads read the step's scalars; the previous step's carry
@@ -333,6 +372,8 @@ __global__ void __launch_bounds__(kThreads) place_scan_kernel(const ScanArgs a) 
               (int32_t)(((long long)e_base[ev_node * 2 + d] * ev_factor[p * 2 + d]) >> kE27Bits);
       }
     }
+    if (has_pre)
+      for (int k = tid; k < a.GP; k += kThreads) s_pre_counts[k] = a.pre_counts[(size_t)b * a.GP + k];
     __syncthreads();
 
     // -- per-spread entry statistics (engine.py:469, :522-532, :601-605) ----
@@ -373,6 +414,9 @@ __global__ void __launch_bounds__(kThreads) place_scan_kernel(const ScanArgs a) 
     const long long q_d = (1LL << kRecipBits) / desired_g;
     const float desired_f = (float)desired[g];
     const int fnode = a.has_forced ? forced_node[p] : -1;
+    long long ask3[3] = {0, 0, 0};
+    if (has_pre)
+      for (int d = 0; d < 3; ++d) ask3[d] = (long long)asks[g * D + d];
     Counts cnt = {0, 0, 0, 0, 0};
     for (int i = tid; i < N; i += kThreads) {
       bool fits = true;
@@ -394,7 +438,8 @@ __global__ void __launch_bounds__(kThreads) place_scan_kernel(const ScanArgs a) 
       const int jc = job_counts[i];
       const bool dh = dh_job_g ? (jc == 0) : (dh_tg_g ? !(tgc > 0 && jc > 0) : true);
       const uint8_t fbits = feat_g[i];
-      bool feasible = (fbits & 1) && fits && dh;
+      // every mask but capacity first (the AND is order-free)
+      bool feasible = (fbits & 1) && dh;
       if (a.has_forced) feasible = feasible && (fnode < 0 || i == fnode);
       for (int d = 0; d < DP; ++d) {
         const int vid = dp_vids[(size_t)d * N + i];
@@ -404,6 +449,16 @@ __global__ void __launch_bounds__(kThreads) place_scan_kernel(const ScanArgs a) 
         const bool missing = vid == V2 - 1;
         feasible = feasible && (!applies || (!missing && c < dp_limit[d]));
       }
+      bool cap_ok = fits;
+      if constexpr (!kFloat) {
+        // preemption rescue, cap_ok = fits | met, only where it can decide
+        if (has_pre && feasible && !fits && i < n_real) {
+          long long pen[kCMax];
+          const PreRow row = pre_row(a, bNC, bN, i, s_pre_counts, pen);
+          cap_ok = can_meet(ask3, row) && greedy_row(ask3, row, nullptr, nullptr);
+        }
+      }
+      feasible = feasible && cap_ok;
       bool pmask = false;
       for (int k = 0; k < K; ++k) pmask = pmask || penalty_idx[p * K + k] == i;
       const bool anti_present = tgc > 0;
@@ -414,13 +469,8 @@ __global__ void __launch_bounds__(kThreads) place_scan_kernel(const ScanArgs a) 
         // engine.py:576-581
         const float node_c = reserved ? __fsub_rn(totals[i * D + 0], reserved[i * D + 0]) : totals[i * D + 0];
         const float node_m = reserved ? __fsub_rn(totals[i * D + 1], reserved[i * D + 1]) : totals[i * D + 1];
-        const float free_c = __fsub_rn(1.f, __fdiv_rn(util_cm[0], max_keep_nan(node_c, kEps)));
-        const float free_m = __fsub_rn(1.f, __fdiv_rn(util_cm[1], max_keep_nan(node_m, kEps)));
-        const float fitness = __fsub_rn(20.f, __fadd_rn(powf(10.f, free_c), powf(10.f, free_m)));
-        float clipped = fitness < 0.f ? 0.f : fitness;
-        clipped = clipped > 18.f ? 18.f : clipped;
-        const float binpack = __fdiv_rn(clipped, 18.f);
-        const float anti = anti_present ? __fdiv_rn(-__fadd_rn((float)tgc, 1.f), desired_f) : 0.f;
+        const float binpack = binpack_f32(util_cm[0], util_cm[1], node_c, node_m);
+        const float anti = anti_f32(anti_present, tgc, desired_f);
         const float resched = pmask ? -1.f : 0.f;
         const float aff = aff_p ? aff_score[(size_t)g * N + i] : 0.f;
 
@@ -471,10 +521,8 @@ __global__ void __launch_bounds__(kThreads) place_scan_kernel(const ScanArgs a) 
         final_score = __fdiv_rn(sum, (float)num_terms);
       } else {
         const long long sw64 = sum_sw_p[p] > 1 ? (long long)sum_sw_p[p] : 1LL;
-        long long fit = 20 * kE27One - e_sel(e_base, e_ask_g, i, 0) - e_sel(e_base, e_ask_g, i, 1);
-        fit = fit < 0 ? 0 : (fit > 18 * kE27One ? 18 * kE27One : fit);
-        const long long binpack = (fit * 4) / 9;  // fit >= 0: truncation is floor
-        const long long anti = anti_present ? -((((long long)tgc + 1) * q_d) >> kRsh) : 0;
+        const long long binpack = binpack_q30(e_sel(e_base, e_ask_g, i, 0), e_sel(e_base, e_ask_g, i, 1));
+        const long long anti = anti_q30(anti_present, tgc, q_d);
         const long long resched = pmask ? -kTermOne : 0;
         const long long aff = aff_p ? (long long)aff_score[(size_t)g * N + i] : 0;
 
@@ -523,7 +571,7 @@ __global__ void __launch_bounds__(kThreads) place_scan_kernel(const ScanArgs a) 
       const bool feas_v = feasible && i < n_real;
       const bool low = feas_v && final_score <= (Score)0;
       scr_final[i] = final_score;
-      scr_flags[i] = (uint8_t)((int)feas_v | ((int)low << 1));
+      scr_flags[i] = (uint8_t)((int)feas_v | ((int)low << 1) | ((int)fits << 2));
       cnt.low_total += low;
       cnt.feas_total += feas_v;
       if (i < offset) {
@@ -626,6 +674,43 @@ __global__ void __launch_bounds__(kThreads) place_scan_kernel(const ScanArgs a) 
           if (vid >= 0 && vid < V2) dp_counts[d * V2 + vid] += 1;
         }
       }
+      if constexpr (!kFloat) {
+        // commit the eviction set where the chosen node did not fit
+        // outright (engine.py:761-832)
+        if (has_pre && success && !(scr_flags[chosen] & 4)) {
+          const int ch = chosen;
+          const int C = a.C;
+          long long pen[kCMax];
+          int8_t sel_ord[kCMax];
+          int rank[kCMax];
+          const PreRow row = pre_row(a, bNC, bN, ch, s_pre_counts, pen);
+          greedy_row(ask3, row, sel_ord, nullptr);
+          const uint32_t keep = second_pass_row(ask3, row, sel_ord, rank);
+          // the freed capacity credits used after the score terms; dims
+          // past 4 free nothing
+          int32_t freed4[4] = {0, 0, 0, 0};
+          long long freed3[3] = {0, 0, 0};
+          long long eb[2] = {(long long)e_base[ch * 2 + 0], (long long)e_base[ch * 2 + 1]};
+          const size_t base = bNC + (size_t)ch * C;
+          int32_t* ev_row = a.evict_out + (bP + p) * C;
+          for (int c = 0; c < C; ++c) {
+            if (!((keep >> c) & 1u)) continue;
+            for (int d = 0; d < 4; ++d) freed4[d] += row.res[c * 4 + d];
+            for (int d = 0; d < 3; ++d) freed3[d] += row.res[c * 4 + d];
+            // the running Q27 product in slot order (not associative)
+            for (int d = 0; d < 2; ++d) eb[d] = (eb[d] * (long long)a.pre_evf[(base + c) * 2 + d]) >> kE27Bits;
+            a.pre_alive[base + c] = 0;
+            const int gid = a.pre_gid[base + c];
+            if (gid >= 0 && gid < a.GP) a.pre_counts[(size_t)b * a.GP + gid] += 1;
+            ev_row[c] = rank[c];
+          }
+          for (int d = 0; d < 4; ++d) used[ch * D + d] -= freed4[d];
+          e_base[ch * 2 + 0] = (int32_t)eb[0];
+          e_base[ch * 2 + 1] = (int32_t)eb[1];
+          long long* rem = a.pre_remaining + (bN + ch) * 3;
+          for (int d = 0; d < 3; ++d) rem[d] += freed3[d];
+        }
+      }
       if (do_evict && !success) {  // revert the eviction
         for (int d = 0; d < D; ++d) used[ev_node * D + d] = add_t(used[ev_node * D + d], evict_res[p * D + d]);
         job_counts[ev_node] += 1;
@@ -656,6 +741,7 @@ __global__ void __launch_bounds__(kThreads) place_scan_kernel(const ScanArgs a) 
 template <typename T>
 int launch(const ScanArgs* args, void* stream) {
   if (args->B == 0 || args->P == 0) return 0;
+  if (args->has_pre && (args->C > kCMax || args->GP > kGpMax)) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(SpreadStat<typename Arm<T>::Count>) * (size_t)args->S;
   place_scan_kernel<T><<<args->B, kThreads, smem, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();

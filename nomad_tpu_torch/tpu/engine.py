@@ -1,30 +1,40 @@
 """The ``tpu_binpack`` placement engine of the port.
 
-Host code of ``nomad_tpu/tpu/engine.py`` ``TpuPlacementEngine`` needed
-for generic (service/batch) evals, around the port's placement scan:
-``encode_eval`` turns the eval into dense numpy arrays (the encoders of
-``encode.py``, the encode cache with its single-flight claim) in the
-eval's arm: int32 when the scheduler is deterministic, float32
-otherwise (the server's default). ``compute_placements`` hands them to
-the server's ``DeviceBatcher`` (``batcher.py``: one
-``kernels.place_scan_batched`` launch for up to ``device_batch`` evals)
-when the scheduler's planner has one, else ``run_scan_single`` runs
-them through ``kernels.place_scan``; on ``cuda`` that is the
-hand-written CUDA kernel, on ``cpu`` its plain PyTorch version.
-``_apply_results`` / ``_apply_results_dense`` turn the chosen nodes into
-the Plan, as in the JAX engine.
+Host code of ``nomad_tpu/tpu/engine.py`` ``TpuPlacementEngine`` around
+the port's kernels. Generic (service/batch) evals: ``encode_eval`` turns
+the eval into dense numpy arrays (the encoders of ``encode.py``, the
+encode cache with its single-flight claim) in the eval's arm: int32 when
+the scheduler is deterministic, float32 otherwise (the server's
+default). ``compute_placements`` hands them to the server's
+``DeviceBatcher`` (``batcher.py``: one ``kernels.place_scan_batched``
+launch for up to ``device_batch`` evals) when the scheduler's planner
+has one, else ``run_scan_single`` runs them through
+``kernels.place_scan``; on ``cuda`` that is the hand-written CUDA kernel,
+on ``cpu`` its plain PyTorch version. ``_apply_results`` /
+``_apply_results_dense`` turn the chosen nodes into the Plan, as in the
+JAX engine.
 
-An encode this engine cannot run yet takes the same gate the JAX engine
-uses for unsupported features (host placement, ``NotImplemented``) and
-is counted under ``nomad.tpu_engine.unported`` with its reason:
-``preemption``, a service/batch eval with preemption enabled by the
-scheduler configuration (it would carry candidate tables).
+System evals: ``compute_system_placements`` encodes one forced node per
+placement. An eval whose forced nodes are all distinct runs the
+scan-free forced-node kernel (``kernels.forced_eval``, K4); a multi-TG
+eval runs the scan. Forced nodes that failed on capacity go through a
+second pass with the preemption candidate tables (the scan's ``has_pre``
+branch), or back to the scheduler's host per-node loop where the
+reference sends them there (float arm, device asks, network asks, a
+table gate).
+
+Preemption: when the scheduler configuration enables it for the job's
+type, a deterministic eval encodes the candidate tables
+(``encode.build_preempt_tables``) and the scan returns each placement's
+eviction set in its ``evict`` column; the apply step writes them into
+``plan.node_preemptions`` and the allocs' ``preempted_allocations``.
+The reference's gates stay as they are and count under
+``nomad.tpu_engine.fallback`` (host placement).
 
 Unlike the JAX engine, a failed kernel build or launch is not caught:
 it raises out of the scheduler's ``process()`` (the server's worker then
 nacks the eval back to the broker); nothing is placed on the host
-instead. The chunked tier, the forced-node (system) kernel and parity
-sampling are later slices.
+instead. The chunked tier and parity sampling are later slices.
 """
 from __future__ import annotations
 
@@ -99,21 +109,55 @@ class EncodedEval:
         # path (fresh, no networks/devices/canaries): results stay as
         # arrays end to end (structs.DenseTGPlacements)
         self.dense_ok = dense_ok
-        # preemption candidate allocs (JAX engine); None here: the port
-        # gates preempting evals before encode
+        # device-side preemption: per-node candidate Allocation lists
+        # parallel to the encoded candidate slots, mapping the evict
+        # column back to allocs; None when the eval encodes no
+        # preemption
         self.pre_allocs = pre_allocs
 
 
-def _no_preempt_arrays(n_pad):
-    """The zero-width candidate axis of an eval that encodes no
-    preemption: the 6 static entries, then the 3 carry seeds."""
-    return (
-        np.zeros((n_pad, 0, 4), np.int32), np.zeros((n_pad, 0), np.int32),
-        np.zeros((n_pad, 0), bool), np.zeros((n_pad, 0), np.int32),
-        np.zeros((n_pad, 0), np.int32), np.zeros((n_pad, 0, 2), np.int32),
-        np.zeros((n_pad, 0), bool), np.zeros((0, 3), np.int64),
-        np.zeros(0, np.int32),
-    )
+def _pad_preempt_arrays(pre_tables, n_pad, n_real, node_c2):
+    """Pad one eval's PreemptTables (encode.build_preempt_tables) to the
+    node grid and derive the Q27 eviction-free factors
+    (engine.py:123-167). ``None`` tables give width-0 arrays: the scan's
+    preemption branch is skipped (``has_pre`` is a shape test). Returns
+    the 6 static entries followed by the 3 carry seeds."""
+    if pre_tables is None:
+        return (
+            np.zeros((n_pad, 0, 4), np.int32), np.zeros((n_pad, 0), np.int32),
+            np.zeros((n_pad, 0), bool), np.zeros((n_pad, 0), np.int32),
+            np.zeros((n_pad, 0), np.int32), np.zeros((n_pad, 0, 2), np.int32),
+            np.zeros((n_pad, 0), bool), np.zeros((0, 3), np.int64),
+            np.zeros(0, np.int32),
+        )
+    from .intscore import E27_ONE, e27_np, xq_np
+
+    c_w = pre_tables.c
+    pre_res = np.zeros((n_pad, c_w, 4), np.int32)
+    pre_res[:n_real] = pre_tables.res4
+    pre_prio = np.zeros((n_pad, c_w), np.int32)
+    pre_prio[:n_real] = pre_tables.prio
+    pre_elig = np.zeros((n_pad, c_w), bool)
+    pre_elig[:n_real] = pre_tables.elig
+    pre_mp = np.zeros((n_pad, c_w), np.int32)
+    pre_mp[:n_real] = pre_tables.mp
+    pre_gid = np.zeros((n_pad, c_w), np.int32)
+    pre_gid[:n_real] = pre_tables.gid
+    # eviction FREES capacity: Q27 factor e27(+res/cap) per candidate on
+    # cpu/mem, the destructive-update ev_factor's convention; padded
+    # nodes and empty slots hold the neutral factor
+    pre_evf = np.full((n_pad, c_w, 2), E27_ONE, np.int32)
+    for d in (0, 1):
+        pre_evf[:, :, d] = e27_np(
+            xq_np(pre_res[:, :, d].astype(np.int64),
+                  np.maximum(node_c2[:, d], 1)[:, None])
+        ).astype(np.int32)
+    pre_alive0 = np.ones((n_pad, c_w), bool)
+    pre_remaining0 = np.zeros((n_pad, 3), np.int64)
+    pre_remaining0[:n_real] = pre_tables.remaining3
+    pre_counts0 = pre_tables.counts0.astype(np.int32)
+    return (pre_res, pre_prio, pre_elig, pre_mp, pre_gid, pre_evf,
+            pre_alive0, pre_remaining0, pre_counts0)
 
 
 def _round_up(n: int, multiple: int = 128) -> int:
@@ -236,6 +280,21 @@ def _release_enc_claim(claim_cell: Dict[str, object]) -> None:
     ev.set()
 
 
+def _evicted_allocs(enc, evict, pi: int, node_idx: int) -> List:
+    """The allocs placement ``pi`` preempts, in final eviction order: the
+    evict column holds each evicted slot's second-pass rank (-1 for the
+    others), ascending rank being the order the host Preemptor reports.
+    Empty when the eval encodes no preemption."""
+    if (enc is None or enc.pre_allocs is None or evict is None
+            or evict.ndim != 2 or not evict.shape[1]):
+        return []
+    row = evict[pi]
+    ks = sorted((c for c in range(row.shape[0]) if int(row[c]) >= 0),
+                key=lambda c: int(row[c]))
+    cand = enc.pre_allocs[node_idx]
+    return [cand[c] for c in ks]
+
+
 # ---------------------------------------------------------------------------
 # Engine
 # ---------------------------------------------------------------------------
@@ -265,8 +324,9 @@ class TorchPlacementEngine:
         """Run the eval's whole placement list through the placement scan.
 
         Returns True when handled, NotImplemented when the eval is too
-        small for the device or the encode takes the unsupported/unported
-        gate (the host iterator stack places the eval). When the
+        small for the device or the encode takes one of the reference's
+        unsupported-feature gates (the host iterator stack places the
+        eval). When the
         scheduler's planner carries a ``device_batcher`` (the server's
         workers do), the encoded eval is submitted there so concurrent
         evals share ONE batched launch; otherwise it runs as a
@@ -325,10 +385,10 @@ class TorchPlacementEngine:
                         _tlc.pipeline_stage("dispatch", wave_id):
                     if batcher is not None:
                         expected_held = False  # run() consumes the token
-                        chosen, scores, pulls, skipped_steps, _evict = batcher.run(
+                        chosen, scores, pulls, skipped_steps, evict = batcher.run(
                             enc, expected=True)
                     else:
-                        chosen, scores, pulls, skipped_steps, _evict = (
+                        chosen, scores, pulls, skipped_steps, evict = (
                             self.run_scan_single(enc))
             except BaseException:
                 # the launch failed: the error reaches the worker, which
@@ -345,14 +405,16 @@ class TorchPlacementEngine:
             with _phases.track("apply"):
                 chosen = np.asarray(chosen)
                 skipped_steps = np.asarray(skipped_steps)
+                evict = np.asarray(evict)
                 if enc.dense_ok and (chosen >= 0).all() and not skipped_steps.any():
                     # every placement succeeded and qualifies: results stay
                     # dense (no per-alloc objects) all the way to the FSM
-                    self._apply_results_dense(sched, enc, chosen, scores, pulls)
+                    self._apply_results_dense(sched, enc, chosen, scores, pulls,
+                                              evict)
                 else:
                     self._apply_results(
                         sched, enc.missing_list, enc.nodes, chosen, scores,
-                        pulls, skipped_steps, enc.start_ns,
+                        pulls, skipped_steps, enc.start_ns, enc=enc, evict=evict,
                     )
             _metrics.measure_since("nomad.tpu_engine.apply_work", t1)
         _metrics.measure_since("nomad.tpu_engine.apply", t0)
@@ -370,6 +432,37 @@ class TorchPlacementEngine:
             _carry, ys = kernels.place_scan(enc.n_pad, static, carry, xs)
             out = to_numpy(ys)
         return out
+
+    def run_forced(self, enc: "EncodedEval"):
+        """Run one all-distinct forced-node eval through the scan-free
+        kernel (``kernels.forced_eval``, K4; engine.py:1209-1250). The
+        placement axis pads to a pow2 bucket, as in the JAX engine:
+        padded entries carry forced_node = -1, which the kernel maps to
+        chosen = -1, and only the first ``enc.p`` slots are returned."""
+        from ..utils import phases as _phases
+
+        p = enc.p
+        p_pad = _round_up(max(p, 1))
+        xs = enc.xs
+        if p_pad != p:
+            def padp(arr, fill):
+                widths = ((0, p_pad - p),) + ((0, 0),) * (arr.ndim - 1)
+                return np.pad(arr, widths, constant_values=fill)
+
+            (tg_idx, penalty_idx, evict_node, evict_res, evict_tg,
+             limit_p, sum_sw_p, ev_factor, rev_factor, forced_node) = xs
+            xs = (
+                padp(tg_idx, 0), padp(penalty_idx, -1),
+                padp(evict_node, -1), padp(evict_res, 0),
+                padp(evict_tg, -1), padp(limit_p, 0), padp(sum_sw_p, 0),
+                padp(ev_factor, 0), padp(rev_factor, 0),
+                padp(forced_node, -1),
+            )
+        static, carry, xs = scan_inputs_to_torch(enc.static, enc.carry, xs,
+                                                 self.device)
+        with _phases.track("device"):
+            out = to_numpy(kernels.forced_eval(static, carry, xs))
+        return tuple(a[:p] for a in out)
 
     @staticmethod
     def _pipeline_remember(sched, enc: "EncodedEval") -> None:
@@ -405,7 +498,8 @@ class TorchPlacementEngine:
         """Encode one eval's placement problem into dense numpy arrays.
 
         Returns an EncodedEval, True (nothing to place) or NotImplemented
-        (unsupported or unported feature — host placement).
+        (a feature the reference's engine does not encode either — host
+        placement).
 
         try/finally wrapper: the impl may claim a single-flight encode
         slot (an Event parked in the fleet's enc_cache). Success and the
@@ -438,22 +532,6 @@ class TorchPlacementEngine:
             _metrics.incr_counter("nomad.tpu_engine.fallback")
             _release_enc_claim(claim_cell)
             return NotImplemented
-
-        def unported(reason: str):
-            logger.debug("tpu engine: %s not ported yet; host placement", reason)
-            _metrics.incr_counter("nomad.tpu_engine.unported")
-            _metrics.incr_counter(f"nomad.tpu_engine.unported.{reason}")
-            return NotImplemented
-
-        # Gate of what the port cannot run yet (module doc), before any
-        # claim or encode work. Device-side preemption: the SAME switch
-        # the host stack consults
-        # (generic_sched.get_select_options).
-        from ..scheduler.preemption import preemption_enabled
-
-        _, _sched_cfg = ctx.state.scheduler_config()
-        if preemption_enabled(_sched_cfg, job.type):
-            return unported("preemption")
 
         # Sticky-disk preferred nodes use a different two-phase select; punt.
         # Simultaneously decide dense-path eligibility: every placement
@@ -488,6 +566,15 @@ class TorchPlacementEngine:
 
         fleet = fleet_static(ctx, job, nodes)
 
+        # Device-side preemption (tpu/preempt.py): does this eval's host
+        # oracle preempt? The SAME switch the host stack consults
+        # (generic_sched.get_select_options), so the two paths never
+        # disagree on whether the eval may evict.
+        from ..scheduler.preemption import preemption_enabled
+
+        _, _sched_cfg = ctx.state.scheduler_config()
+        preempt_on = preemption_enabled(_sched_cfg, job.type)
+
         # Whole-eval encode cache: a burst of same-shaped fresh jobs (the
         # C1M workload) re-derives identical arrays per eval. When every
         # per-eval input is provably default — all placements fresh
@@ -498,7 +585,7 @@ class TorchPlacementEngine:
         enc_cache = None
         cache_key = None
         cur_epoch = -1
-        if fleet is not None and dense_ok and not destructive:
+        if fleet is not None and dense_ok and not destructive and not preempt_on:
             plan = ctx.plan
             spread_state = sched.stack.spread
             if (
@@ -617,6 +704,31 @@ class TorchPlacementEngine:
         fdtype = np.int32 if int_mode else np.float32
         if int_mode:
             reason = _int_spec_gate_reason(table, tg_specs, job)
+            if reason is not None:
+                return fallback(reason)
+
+        pre_tables = None
+        if preempt_on:
+            # a preempting host oracle may evict on ANY node, so encoding
+            # this eval without the candidate tables would diverge from
+            # it: every gate below sends the WHOLE eval to the host stack
+            if not int_mode:
+                return fallback("preemption requires deterministic int mode")
+            if destructive:
+                return fallback("preemption with destructive updates")
+            if device_dims:
+                # the host oracle runs preempt_for_device (float scoring,
+                # instance-level assignment state): host only
+                return fallback("preemption with device asks")
+            if any(
+                tg.networks or any(t.resources.networks for t in tg.tasks)
+                for tg in (m.get_task_group() for m in missing_list)
+            ):
+                # the host oracle runs preempt_for_network first: host only
+                return fallback("preemption with network asks")
+            from .encode import build_preempt_tables
+
+            pre_tables, reason = build_preempt_tables(ctx, job, nodes)
             if reason is not None:
                 return fallback(reason)
         _metrics.incr_counter("nomad.tpu_engine.handled")
@@ -830,6 +942,9 @@ class TorchPlacementEngine:
             # scan's exact counters would diverge; host placement keeps
             # plan parity
             return fallback("distinct_property with in-eval evictions")
+        if dp_vids_r.shape[0] and pre_tables is not None:
+            # the same PropertySet refund quirk, via preempted allocs
+            return fallback("distinct_property with preemption")
         d_dp = dp_vids_r.shape[0]
         v_dp = dp_counts0.shape[1] if d_dp else 1
         dp_vids = np.full((d_dp, n_pad), v_dp - 1, np.int32)
@@ -837,7 +952,8 @@ class TorchPlacementEngine:
             dp_vids[:, :n_real] = dp_vids_r
 
         (pre_res, pre_prio, pre_elig, pre_mp, pre_gid, pre_evf,
-         pre_alive0, pre_remaining0, pre_counts0) = _no_preempt_arrays(n_pad)
+         pre_alive0, pre_remaining0, pre_counts0) = _pad_preempt_arrays(
+            pre_tables, n_pad, n_real, node_c2 if int_mode else None)
 
         static = (
             totals, reserved, asks, feat_packed, aff_score,
@@ -867,6 +983,7 @@ class TorchPlacementEngine:
             dtype=fdtype, static=static, carry=init_carry, xs=xs,
             missing_list=missing_list, nodes=nodes, table=table,
             start_ns=start, dense_ok=dense_ok,
+            pre_allocs=(pre_tables.allocs if pre_tables is not None else None),
         )
         if enc_cache is not None and cache_key is not None:
             # arrays are read-only downstream (the batcher pads into fresh
@@ -879,6 +996,430 @@ class TorchPlacementEngine:
         if ev is not None:
             ev.set()
         return enc
+
+    # ------------------------------------------------------------------
+    # System scheduler path: one alloc per ELIGIBLE node. Each placement
+    # names its node up front (system_sched.go:268-286), so the dense pass
+    # is the scan with a per-placement forced_node restriction and no
+    # spread/affinity/limit machinery (SystemStack has none, stack.go:166).
+    # ------------------------------------------------------------------
+
+    def compute_system_placements(self, sched, place: List, sched_config=None,
+                                  _preempt_pass: bool = False):
+        """Place a SystemScheduler eval's placements on the device
+        (engine.py:2178-2470). Returns True when fully handled, a
+        non-empty list of leftover placement tuples when the device
+        handled everything except nodes the host per-node loop must
+        preempt on (the caller runs that loop over the subset), or
+        NotImplemented when the reference's own gates send the whole
+        eval to the host stack. ``sched_config`` is the
+        SchedulerConfiguration the caller already read. A kernel that
+        fails to build or launch raises."""
+        if not place:
+            return True
+
+        job = sched.job
+        ctx = sched.ctx
+        nodes = list(sched.nodes)
+        n_real = len(nodes)
+
+        from ..utils import metrics as _metrics
+
+        def fallback(reason: str):
+            logger.debug("tpu system engine fallback: %s", reason)
+            _metrics.incr_counter("nomad.tpu_engine.fallback")
+            return NotImplemented
+
+        for node in nodes:
+            if len({net.device for net in node.node_resources.networks if net.device}) > 1:
+                return fallback("multi-NIC node")
+
+        from ..trace import lifecycle as _tlc
+        from ..utils import phases as _phases
+
+        tg_specs: Dict[str, TGSpec] = {}
+        port_cache: Dict[str, object] = {}
+        try:
+            with _phases.track("encode"), \
+                    _tlc.pipeline_stage("encode", sched.eval.id):
+                for tup in place:
+                    tg = tup.task_group
+                    if tg.name not in tg_specs:
+                        tg_specs[tg.name] = build_tg_spec(
+                            ctx, job, tg, nodes, False, port_cache)
+                table = build_node_table(ctx, job, nodes)
+        except UnsupportedByEngine as e:
+            return fallback(str(e))
+        int_mode = bool(ctx.deterministic)
+        if int_mode:
+            reason = _int_spec_gate_reason(table, tg_specs, job)
+            if reason is not None:
+                return fallback(reason)
+        num_dims = table.totals.shape[1]
+        start = _time.monotonic_ns()
+        fdtype = np.int32 if int_mode else np.float32
+
+        pre_tables = None
+        if _preempt_pass:
+            # second pass over capacity-failed forced nodes, WITH the
+            # candidate tables. A gate hands the SUBSET to the host
+            # per-node loop (list return), never the whole eval: pass 1
+            # is already applied.
+            if not int_mode:
+                return list(place)
+            if num_dims != 4:
+                return list(place)  # preempt_for_device is host-only
+            if any(
+                tup.task_group.networks
+                or any(t.resources.networks for t in tup.task_group.tasks)
+                for tup in place
+            ):
+                return list(place)  # preempt_for_network is host-only
+            from .encode import build_preempt_tables
+
+            pre_tables, pre_reason = build_preempt_tables(ctx, job, nodes)
+            if pre_reason is not None:
+                logger.debug("tpu system preempt pass to host: %s", pre_reason)
+                return list(place)
+
+        n_pad = _round_up(max(n_real, 1))
+        g_count = len(job.task_groups)
+        specs_by_gi = {spec.index: spec for spec in tg_specs.values()}
+
+        totals = np.zeros((n_pad, num_dims), fdtype)
+        totals[:n_real] = table.totals
+        reserved = np.zeros((n_pad, num_dims), fdtype)
+        reserved[:n_real] = table.reserved
+        used0 = np.zeros((n_pad, num_dims), fdtype)
+        used0[:n_real] = table.used
+        tg_counts0 = np.zeros((g_count, n_pad), np.int32)
+        tg_counts0[:, :n_real] = table.tg_counts
+        job_counts0 = np.zeros(n_pad, np.int32)
+        job_counts0[:n_real] = table.job_counts
+
+        from .intscore import E27_ONE, e27_np, pack_feat_planes, xq_np
+
+        if int_mode:
+            node_c2 = (totals[:, :2] - reserved[:, :2]).astype(np.int64)
+            free0 = node_c2 - used0[:, :2] - reserved[:, :2]
+            e_base0 = e27_np(xq_np(free0, node_c2)).astype(np.int32)
+            e_ask = np.full((g_count, n_pad, 2), E27_ONE, np.int32)
+        else:
+            e_base0 = np.zeros((0, 2), np.int32)
+            e_ask = np.zeros((0, 0, 2), np.int32)
+
+        asks = np.zeros((g_count, num_dims), fdtype)
+        feas = np.zeros((g_count, n_pad), bool)
+        for gi, spec in specs_by_gi.items():
+            asks[gi] = spec.ask
+            feas[gi, :n_real] = spec.feasible
+            if int_mode:
+                for d in (0, 1):
+                    e_ask[gi, :, d] = e27_np(
+                        xq_np(np.full(n_pad, -int(spec.ask[d]), np.int64),
+                              node_c2[:, d])
+                    ).astype(np.int32)
+
+        # SystemStack has no spread/affinity/limit/anti-affinity
+        # iterators: encode them inert so those score terms vanish
+        feat_packed = pack_feat_planes(feas)
+        aff_score = np.zeros((0, n_pad), fdtype)
+        desired_counts = np.ones(g_count, np.int32)
+        dh_job = np.zeros(g_count, bool)
+        dh_tg = np.zeros(g_count, bool)
+        limits = np.ones(g_count, np.int32)
+        spread_vids = np.full((g_count, 1, n_pad), 1, np.int32)
+        spread_desired = np.full((g_count, 1, 2), -1, fdtype)
+        spread_weights = np.zeros((g_count, 1), fdtype)
+        spread_has_targets = np.zeros((g_count, 1), bool)
+        spread_active = np.zeros((g_count, 1), bool)
+        sum_spread_weights = np.zeros(g_count, fdtype)
+        spread_counts0 = np.zeros((g_count, 1, 2), fdtype)
+        spread_entry0 = np.zeros((g_count, 1, 2), bool)
+
+        p = len(place)
+        tg_name_to_gi = {g.name: i for i, g in enumerate(job.task_groups)}
+        tg_idx = np.zeros(p, np.int32)
+        forced = np.zeros(p, np.int32)
+        for pi, tup in enumerate(place):
+            tg_idx[pi] = tg_name_to_gi[tup.task_group.name]
+            forced[pi] = table.node_index.get(tup.alloc.node_id, -1)
+        if (forced < 0).any():
+            return fallback("system placement on unknown node")
+
+        from ..structs.structs import CONSTRAINT_DISTINCT_PROPERTY
+
+        has_dp = any(
+            c.operand == CONSTRAINT_DISTINCT_PROPERTY
+            for c in list(job.constraints)
+            + [c for tg in job.task_groups for c in tg.constraints]
+        )
+        if has_dp:
+            # the host DistinctPropertyIterator counts DP blocks as
+            # FILTERED; the dense pass can't split that per forced node
+            return fallback("system distinct_property")
+        dp_vids = np.zeros((0, n_pad), np.int32)
+        dp_limit = np.zeros(0, np.int32)
+        dp_applies = np.zeros((g_count, 0), bool)
+        dp_counts0 = np.zeros((0, 1), np.int32)
+
+        if int_mode:
+            # fold reserved into totals (see encode_eval)
+            totals = totals - reserved
+            reserved = np.zeros((0, num_dims), fdtype)
+
+        (pre_res, pre_prio, pre_elig, pre_mp, pre_gid, pre_evf,
+         pre_alive0, pre_remaining0, pre_counts0) = _pad_preempt_arrays(
+            pre_tables, n_pad, n_real, node_c2 if int_mode else None)
+
+        static = (
+            totals, reserved, asks, feat_packed, aff_score,
+            desired_counts, dh_job, dh_tg, limits, spread_vids, spread_desired,
+            spread_weights, spread_has_targets, spread_active,
+            sum_spread_weights, np.int32(n_real), e_ask,
+            dp_vids, dp_limit, dp_applies,
+            pre_res, pre_prio, pre_elig, pre_mp, pre_gid, pre_evf,
+        )
+        init_carry = (
+            used0, tg_counts0, job_counts0, spread_counts0, spread_entry0,
+            np.int32(0), np.zeros(g_count, bool), e_base0, dp_counts0,
+            pre_alive0, pre_remaining0, pre_counts0,
+        )
+        xs = (
+            tg_idx,
+            np.full((p, 0), -1, np.int32),       # no reschedule penalties
+            np.full(p, -1, np.int32),            # no evictions
+            np.zeros((p, 0), fdtype),
+            np.full(p, -1, np.int32),
+            np.ones(p, np.int32),                # limit: the single node
+            np.zeros(p, fdtype),
+            np.zeros((p, 0), np.int32),
+            np.zeros((p, 0), np.int32),
+            forced.reshape(p, 1),
+        )
+        enc = EncodedEval(
+            n_real=n_real, n_pad=n_pad, g=g_count, s=1, v=2, p=p,
+            dtype=fdtype, static=static, carry=init_carry, xs=xs,
+            missing_list=list(place), nodes=nodes, table=table,
+            start_ns=start,
+            pre_allocs=(pre_tables.allocs if pre_tables is not None else None),
+        )
+
+        # All-distinct forced nodes (single-TG system jobs): the scan-free
+        # forced-node kernel. Duplicated forced nodes (multi-TG jobs
+        # placing several allocs on one node) interact through used and
+        # tg_counts and keep the sequential scan; so does a preempt pass.
+        batcher = getattr(sched.planner, "device_batcher", None)
+        with _phases.track("device_wait"), \
+                _tlc.pipeline_stage("dispatch", sched.eval.id):
+            if len(set(forced.tolist())) == p and pre_tables is None:
+                chosen, scores, pulls, skipped, evict = self.run_forced(enc)
+                if batcher is not None:
+                    # the forced kernel bypasses the gather queue; count it
+                    # in the batcher's stats under the batcher's lock (the
+                    # dispatcher thread updates them too)
+                    with batcher._lock:
+                        batcher.stats["dispatches"] = batcher.stats.get("dispatches", 0) + 1
+                        batcher.stats["evals"] = batcher.stats.get("evals", 0) + 1
+            elif batcher is not None:
+                chosen, scores, pulls, skipped, evict = batcher.run(enc)
+            else:
+                chosen, scores, pulls, skipped, evict = self.run_scan_single(enc)
+
+        # A forced node that failed on CAPACITY (feasible by constraints
+        # but no fit) with preemption enabled: the device results are
+        # KEPT for every other placement and the subset goes through the
+        # preempt pass below, in placement order, so max_parallel penalty
+        # counts accumulate as in the host loop. Constraint-filtered
+        # nodes never preempt.
+        preemption_on = True
+        if sched_config is not None:
+            preemption_on = sched_config.preemption_config.system_scheduler_enabled
+        leftover: List = []
+        chosen = np.asarray(chosen)
+        evict = np.asarray(evict)
+        if preemption_on and not _preempt_pass:
+            keep: List[int] = []
+            for pi, tup in enumerate(place):
+                if int(chosen[pi]) < 0:
+                    spec = tg_specs[tup.task_group.name]
+                    idx = int(forced[pi])
+                    if idx < n_real and spec.constraint_feasible[idx]:
+                        leftover.append(tup)
+                        continue
+                keep.append(pi)
+            if leftover:
+                place = [place[k] for k in keep]
+                kp = np.asarray(keep, np.int64)
+                chosen = chosen[kp]
+                scores = np.asarray(scores)[kp]
+                evict = evict[kp]
+
+        if not _preempt_pass:
+            _metrics.incr_counter("nomad.tpu_engine.handled")
+        self._apply_system_results(
+            sched, place, nodes, table, tg_specs, chosen, scores, start,
+            enc=enc, evict=evict,
+        )
+        if not leftover:
+            return True
+        # Second device pass: re-encode JUST the capacity-failed forced
+        # nodes with the candidate tables; the re-encode sees pass 1's
+        # proposed plan state, as the host per-node loop would. A pass-2
+        # gate returns the subset for the host loop (pass 1 is applied).
+        _metrics.incr_counter("nomad.tpu_engine.system_preempt_pass")
+        res = self.compute_system_placements(
+            sched, leftover, sched_config, _preempt_pass=True)
+        if res is NotImplemented:
+            return leftover
+        return res
+
+    def _apply_system_results(self, sched, place, nodes, table, tg_specs,
+                              chosen, scores, start_ns, enc=None,
+                              evict=None) -> None:
+        """Materialize system results (engine.py:2472-2611): allocs for
+        fits, queued-alloc bookkeeping for constraint-filtered nodes,
+        failed metrics and per-node blocked evals for capacity failures
+        (the host path's semantics). The all-clean case (every node
+        placed, fresh, no network/device asks) takes the dense block
+        path."""
+        from ..structs.structs import AllocMetric
+        from .intscore import score60_to_float
+
+        job = sched.job
+        ctx = sched.ctx
+
+        chosen = np.asarray(chosen)
+        scores = np.asarray(scores)
+        if (
+            not getattr(sched.eval, "annotate_plan", False)
+            and len(place)
+            and (chosen[: len(place)] >= 0).all()
+            and all(
+                (tup.alloc is None or not tup.alloc.id)
+                and not tup.task_group.networks
+                and not any(
+                    t.resources.networks or t.resources.devices
+                    for t in tup.task_group.tasks
+                )
+                for tup in place
+            )
+        ):
+            self._apply_system_results_dense(
+                sched, place, nodes, chosen, scores, start_ns,
+                enc=enc, evict=evict,
+            )
+            return
+
+        assigner = _ResourceAssigner(ctx, nodes)
+
+        def fail(tg, node) -> None:
+            if sched.failed_tg_allocs and tg.name in sched.failed_tg_allocs:
+                sched.failed_tg_allocs[tg.name].coalesced_failures += 1
+                return
+            metrics = AllocMetric()
+            metrics.nodes_evaluated = 1
+            metrics.nodes_exhausted = 1
+            metrics.nodes_available = sched.nodes_by_dc
+            if sched.failed_tg_allocs is None:
+                sched.failed_tg_allocs = {}
+            sched.failed_tg_allocs[tg.name] = metrics
+            sched._add_blocked(node)
+
+        for pi, tup in enumerate(place):
+            tg = tup.task_group
+            node_idx = int(chosen[pi])
+
+            if node_idx < 0:
+                idx = table.node_index.get(tup.alloc.node_id, -1)
+                spec = tg_specs[tg.name]
+                if idx < 0 or not spec.constraint_feasible[idx]:
+                    # constraint mismatch: the node is not in the job's
+                    # domain, not a failure (port-OCCUPIED nodes are
+                    # exhausted below, like the host's rank-phase port
+                    # exhaustion)
+                    sched.queued_allocs[tg.name] -= 1
+                    if (
+                        sched.eval.annotate_plan
+                        and sched.plan.annotations is not None
+                        and tg.name in sched.plan.annotations.desired_tg_updates
+                    ):
+                        sched.plan.annotations.desired_tg_updates[tg.name].place -= 1
+                    continue
+                fail(tg, nodes[idx])
+                continue
+
+            node = nodes[node_idx]
+            task_resources, shared_networks, ok = assigner.build(node_idx, tg)
+            if not ok:
+                fail(tg, node)
+                continue
+
+            metrics = AllocMetric()
+            metrics.nodes_evaluated = 1
+            metrics.nodes_available = sched.nodes_by_dc
+            if scores.dtype.kind == "i":
+                score_f = score60_to_float(scores[pi])
+            else:
+                score_f = float(scores[pi])
+            metrics.score_node(node, "binpack", score_f)
+            metrics.score_node(node, "normalized-score", score_f)
+            metrics.populate_score_meta_data()
+
+            resources = AllocatedResources(
+                tasks=task_resources,
+                shared=AllocatedSharedResources(
+                    disk_mb=tg.ephemeral_disk.size_mb, networks=shared_networks
+                ),
+            )
+            alloc = Allocation(
+                namespace=job.namespace,
+                eval_id=sched.eval.id,
+                name=tup.name,
+                job_id=job.id,
+                task_group=tg.name,
+                metrics=metrics,
+                node_id=node.id,
+                node_name=node.name,
+                allocated_resources=resources,
+                desired_status=ALLOC_DESIRED_RUN,
+                client_status=ALLOC_CLIENT_PENDING,
+            )
+            if tup.alloc is not None and tup.alloc.id:
+                alloc.previous_allocation = tup.alloc.id
+            stops = _evicted_allocs(enc, evict, pi, node_idx)
+            if stops:
+                for stop in stops:
+                    sched.plan.append_preempted_alloc(stop, alloc.id)
+                alloc.preempted_allocations = [a.id for a in stops]
+            sched.plan.append_alloc(alloc)
+
+        ctx.metrics.allocation_time_ns = _time.monotonic_ns() - start_ns
+
+    def _apply_system_results_dense(self, sched, place, nodes, chosen,
+                                    scores, start_ns, enc=None,
+                                    evict=None) -> None:
+        """System-path dense blocks (engine.py:2662-2711), grouped by
+        task group. Preconditions checked by the caller: every placement
+        chose its node, all fresh, no network/device asks."""
+        job = sched.job
+        scores_f = self._scores_to_float(scores)
+        by_tg: Dict[str, List[int]] = {}
+        for pi, tup in enumerate(place):
+            by_tg.setdefault(tup.task_group.name, []).append(pi)
+        tg_by_name = {tg.name: tg for tg in job.task_groups}
+        for tg_name, idxs in by_tg.items():
+            block = self._dense_block(
+                job, tg_by_name[tg_name], sched.eval.id,
+                [chosen[k] for k in idxs], nodes,
+                names=[place[k].name for k in idxs],
+                scores_f=[scores_f[k] for k in idxs],
+                nodes_evaluated=[1] * len(idxs),
+                nodes_available=getattr(sched, "nodes_by_dc", {}),
+            )
+            self._attach_preemptions(sched, block, idxs, chosen, enc, evict)
+            sched.plan.dense_placements.append(block)
+        sched.ctx.metrics.allocation_time_ns = _time.monotonic_ns() - start_ns
 
     # ------------------------------------------------------------------
 
@@ -934,10 +1475,13 @@ class TorchPlacementEngine:
             nodes_available=nodes_available,
         )
 
-    def _apply_results_dense(self, sched, enc, chosen, scores, pulls) -> None:
+    def _apply_results_dense(self, sched, enc, chosen, scores, pulls,
+                             evict=None) -> None:
         """Record scan results as DenseTGPlacements blocks — one per task
-        group, parallel arrays only. Preconditions (checked by the
-        caller): enc.dense_ok, every placement chosen."""
+        group, parallel arrays only. Eviction sets ride each block as
+        parallel id lists and go into ``plan.node_preemptions`` (the plan
+        applier re-checks them, the FSM commits them). Preconditions
+        (checked by the caller): enc.dense_ok, every placement chosen."""
         job = sched.job
         deployment_id = ""
         if sched.deployment is not None and sched.deployment.active():
@@ -959,12 +1503,27 @@ class TorchPlacementEngine:
                 nodes_available=getattr(sched, "_nodes_by_dc", {}),
                 deployment_id=deployment_id,
             )
+            self._attach_preemptions(sched, block, sel, chosen, enc, evict)
             sched.plan.dense_placements.append(block)
 
         sched.ctx.metrics.allocation_time_ns = _time.monotonic_ns() - enc.start_ns
 
+    @staticmethod
+    def _attach_preemptions(sched, block, idxs, chosen, enc, evict) -> None:
+        """Each placement's eviction set onto a dense block
+        (``block.preempted``) and into ``plan.node_preemptions``."""
+        pre_ids: List[List[str]] = []
+        for bi, k in enumerate(idxs):
+            stops = _evicted_allocs(enc, evict, int(k), int(chosen[int(k)]))
+            for stop in stops:
+                sched.plan.append_preempted_alloc(stop, block.ids[bi])
+            pre_ids.append([a.id for a in stops])
+        if any(pre_ids):
+            block.preempted = pre_ids
+
     def _apply_results(self, sched, missing_list, nodes, chosen, scores,
-                       pulls, skipped_steps, start_ns) -> None:
+                       pulls, skipped_steps, start_ns, enc=None,
+                       evict=None) -> None:
         """Materialize scan results into the plan (allocs, stops, metrics)."""
         from ..structs.structs import AllocMetric
         from .intscore import score60_to_float
@@ -1067,6 +1626,12 @@ class TorchPlacementEngine:
                 from ..structs.structs import AllocDeploymentStatus
 
                 alloc.deployment_status = AllocDeploymentStatus(canary=True)
+
+            stops = _evicted_allocs(enc, evict, pi, node_idx)
+            if stops:
+                for stop in stops:
+                    sched.plan.append_preempted_alloc(stop, alloc.id)
+                alloc.preempted_allocations = [a.id for a in stops]
 
             sched.plan.append_alloc(alloc)
 
@@ -1199,6 +1764,9 @@ def example_scan_inputs(n_nodes: int = 64, n_tgs: int = 2, n_placements: int = 1
 #: specialization axes of the step that ``example_scan_variant`` can turn on
 SCAN_VARIANTS = ("s0", "s1", "even", "affinity", "evict", "penalty",
                  "distinct_property", "forced", "overcommit", "all")
+#: the preemption branch (int arm only): generic, and the system
+#: scheduler's preempt pass
+PREEMPT_VARIANTS = ("preempt", "preempt_forced")
 
 
 def example_scan_variant(variant: str, n_nodes: int = 64, n_tgs: int = 2,
@@ -1221,9 +1789,21 @@ def example_scan_variant(variant: str, n_nodes: int = 64, n_tgs: int = 2,
       all                all of the above, two spreads (one even), and a
                          non-folded reserved plane
 
+      preempt            (int arm) C = 16 candidate slots per node filled
+                         with low-priority allocs that overcommit most
+                         nodes (negative remaining), mixed priorities,
+                         ineligible slots, max_parallel penalties from
+                         pre-counted groups; asks 4x larger
+      preempt_forced     (int arm) the system preempt pass: the same
+                         tables, one distinct forced node per placement,
+                         limit 1, no active spread
+
     numpy only, seeded; returns (n_pad, static, carry, xs)."""
     from .intscore import E27_ONE, TERM_ONE, e27_np, e27_py, pack_feat_planes, xq_np, xq_py
 
+    if variant in PREEMPT_VARIANTS:
+        return _example_preempt_variant(variant, n_nodes, n_tgs, n_placements, seed,
+                                        np.dtype(dtype))
     if variant not in SCAN_VARIANTS:
         raise ValueError(f"unknown scan variant {variant!r}")
     dtype = np.dtype(dtype)
@@ -1344,4 +1924,127 @@ def example_scan_variant(variant: str, n_nodes: int = 64, n_tgs: int = 2,
     if "forced" in on:
         forced = np.where(rng.random(p) < 0.5, rng.integers(0, n_nodes, p), -1)
         xs[9] = forced.astype(np.int32)[:, None]
+    return n_pad, tuple(static), tuple(carry), tuple(xs)
+
+
+def _example_preempt_variant(variant, n_nodes, n_tgs, n_placements, seed, dtype):
+    """The ``preempt`` / ``preempt_forced`` variants of
+    ``example_scan_variant``."""
+    from .intscore import e27_np, xq_np
+    from .preempt import C_MAX
+
+    if dtype != np.dtype(np.int32):
+        raise ValueError("the preemption variants exist in the int arm only")
+    forced = variant == "preempt_forced"
+    if forced and n_placements > n_nodes:
+        raise ValueError("preempt_forced needs a distinct node per placement")
+    n_pad, static, carry, xs = example_scan_inputs(
+        n_nodes, n_tgs, n_placements, n_spreads=1, dtype=np.int32, seed=seed)
+    static, carry, xs = list(static), list(carry), list(xs)
+    rng = np.random.default_rng(seed + 104729)
+    totals = static[0]                       # reserved already folded
+    d_dims = totals.shape[1]
+    c_w, gp = C_MAX, 8
+    asks = static[2].copy()
+    asks[:, :3] *= 4
+    static[2] = asks
+
+    pre_res = np.zeros((n_pad, c_w, 4), np.int32)
+    pre_prio = np.zeros((n_pad, c_w), np.int32)
+    pre_elig = np.zeros((n_pad, c_w), bool)
+    pre_mp = np.zeros((n_pad, c_w), np.int32)
+    pre_gid = np.zeros((n_pad, c_w), np.int32)
+    for i in range(n_nodes):
+        k = int(rng.integers(4, c_w + 1))
+        # the slots fill 70-115 % of cpu and memory on most nodes, which
+        # then do not fit the ask (some overcommitted: negative
+        # remaining), and 20-50 % on a fifth of them, which fit outright
+        lo, hi = (0.2, 0.5) if rng.random() < 0.2 else (0.7, 1.15)
+        for d in (0, 1):
+            share = rng.dirichlet(np.ones(k)) * rng.uniform(lo, hi)
+            pre_res[i, :k, d] = np.maximum(1, share * totals[i, d]).astype(np.int32)
+        pre_res[i, :k, 2] = rng.integers(50, 1500, k)
+        pre_res[i, :k, 3] = rng.integers(0, 20, k)
+        pre_prio[i, :k] = rng.choice([10, 20, 20, 30, 40], k)
+        pre_elig[i, :k] = rng.random(k) < 0.85
+        pre_mp[i, :k] = rng.choice([0, 0, 1, 2], k)
+        pre_gid[i, :k] = rng.integers(0, gp, k)
+    used = np.zeros_like(carry[0])
+    used[:, :4] = pre_res.sum(axis=1)
+    node_c2 = totals[:, :2].astype(np.int64)
+    pre_evf = np.full((n_pad, c_w, 2), 1, np.int32)
+    for d in (0, 1):
+        pre_evf[:, :, d] = e27_np(
+            xq_np(pre_res[:, :, d].astype(np.int64), np.maximum(node_c2[:, d], 1)[:, None])
+        ).astype(np.int32)
+    pre_remaining = np.zeros((n_pad, 3), np.int64)
+    pre_remaining[:n_nodes] = (totals[:n_nodes, :3].astype(np.int64)
+                               - used[:n_nodes, :3].astype(np.int64))
+    carry[0] = used
+    carry[7] = e27_np(xq_np(node_c2 - used[:, :2], np.maximum(node_c2, 1))).astype(np.int32)
+    static[20:26] = [pre_res, pre_prio, pre_elig, pre_mp, pre_gid, pre_evf]
+    carry[9] = np.ones((n_pad, c_w), bool)
+    carry[10] = pre_remaining
+    carry[11] = rng.integers(0, 3, gp).astype(np.int32)
+    # the Q27 ask factors against the new asks
+    e_ask = np.empty_like(static[16])
+    for gi in range(n_tgs):
+        for d in (0, 1):
+            e_ask[gi, :, d] = e27_np(
+                xq_np(np.full(n_pad, -int(asks[gi, d]), np.int64),
+                      np.maximum(node_c2[:, d], 1))).astype(np.int32)
+    static[16] = e_ask
+    if forced:
+        # one distinct forced node per placement, as the system pass
+        # encodes the capacity-failed nodes: limit 1, no active spread
+        xs[9] = rng.permutation(n_nodes)[:n_placements].astype(np.int32)[:, None]
+        xs[5] = np.ones(n_placements, np.int32)
+        static[13] = np.zeros_like(static[13])
+    return n_pad, tuple(static), tuple(carry), tuple(xs)
+
+
+def example_forced_variant(n_nodes: int = 64, n_placements: int = 64,
+                           seed: int = 0, dtype=np.int32, device_dims: int = 0):
+    """Inputs of the forced-node kernel (K4) in the system encoder's
+    shape: one task group, one distinct forced node per placement (the
+    first ``n_placements`` of a seeded permutation), no spreads,
+    affinities, penalties, evictions or candidates, limit 1, a pre-placed
+    load that leaves some nodes without room and some task-group counts
+    (anti-affinity), distinct_hosts off. ``device_dims`` adds capacity
+    dims past the four (device counts). The placement axis is NOT padded
+    (``run_forced`` pads it). numpy only; returns (n_pad, static, carry,
+    xs), which the scan (K1/K2) also takes."""
+    dtype = np.dtype(dtype)
+    int_mode = dtype.kind == "i"
+    if n_placements > n_nodes:
+        raise ValueError("one distinct forced node per placement")
+    num_dims = 4 + device_dims
+    n_pad, static, carry, xs = example_scan_inputs(
+        n_nodes, 1, n_placements, n_spreads=1, dtype=dtype, seed=seed,
+        num_dims=num_dims)
+    static, carry, xs = list(static), list(carry), list(xs)
+    rng = np.random.default_rng(seed + 31337)
+    totals = static[0]
+    used = np.zeros_like(carry[0])
+    used[:n_nodes, 0] = (totals[:n_nodes, 0] * rng.uniform(0.0, 1.05, n_nodes)).astype(dtype)
+    used[:n_nodes, 1] = (totals[:n_nodes, 1] * rng.uniform(0.0, 0.9, n_nodes)).astype(dtype)
+    if device_dims:
+        totals[:n_nodes, 4:] = rng.integers(0, 3, (n_nodes, device_dims)).astype(dtype)
+        static[2][:, 4:] = 1
+    carry[0] = used
+    tg_counts = np.zeros_like(carry[1])
+    tg_counts[0, :n_nodes] = rng.random(n_nodes) < 0.3
+    carry[1] = tg_counts
+    carry[2] = tg_counts[0].astype(np.int32).copy()
+    static[13] = np.zeros_like(static[13])                  # no active spread
+    static[5] = np.full_like(static[5], max(n_placements, 1))
+    if int_mode:
+        from .intscore import e27_np, xq_np
+
+        # reserved is already folded into totals: capacities are totals
+        node_c2 = totals[:, :2].astype(np.int64)
+        carry[7] = e27_np(xq_np(node_c2 - used[:, :2], np.maximum(node_c2, 1))).astype(np.int32)
+    xs[0] = np.zeros(n_placements, np.int32)
+    xs[5] = np.ones(n_placements, np.int32)
+    xs[9] = rng.permutation(n_nodes)[:n_placements].astype(np.int32)[:, None]
     return n_pad, tuple(static), tuple(carry), tuple(xs)

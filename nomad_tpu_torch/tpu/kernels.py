@@ -5,23 +5,32 @@ replaces the JAX package's ``_make_step`` / ``_build_place_scan`` /
 ``_build_batched_scan`` (``nomad_tpu/tpu/engine.py:213``, ``:869``,
 ``:1000``). The dtype of ``totals`` picks the arm: int32 launches the
 exact-integer kernel (counted as ``place_scan``), float32 the float
-kernel (counted as ``place_scan_f32``). Each source under ``csrc/`` is compiled at first use with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
-(``_build/``, keyed by the source's hash) and loaded with ``ctypes``;
-every pointer and the stream go across as ``c_void_p``.
+kernel (counted as ``place_scan_f32``). An int32 eval with a candidate
+axis (C > 0) runs the scan's preemption branch (K1 ``has_pre``, with the
+greedy sweep, the second pass and isqrt/coord_q of
+``nomad_tpu/tpu/preempt.py`` as device functions); a float32 one raises.
+``forced_eval`` is the forced-node system kernel (``csrc/forced_eval.cu``,
+K4, ``engine.py:888``), counted as ``forced_eval`` / ``forced_eval_f32``.
+
+Each source under ``csrc/`` is compiled at first use with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface (``_build/``,
+keyed by a hash of the source and every ``csrc/`` header it includes)
+and loaded with ``ctypes``; every pointer and the stream go across as
+``c_void_p``.
 
 The wrappers dispatch on the device of the tensors they are given: on
-the CPU they run the kernel's plain PyTorch version (``step.py``), on
-CUDA they launch the kernel on the current stream or raise. Nothing
-falls back from CUDA to the CPU. ``LAUNCHES`` counts kernel launches,
-one per launch and nowhere else, so a run can show that its main path
-went through the kernel.
+the CPU they run the kernel's plain PyTorch version (``step.py``,
+``forced.py``), on CUDA they launch the kernel on the current stream or
+raise. Nothing falls back from CUDA to the CPU. ``LAUNCHES`` counts
+kernel launches, one per launch and nowhere else, so a run can show that
+its main path went through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,21 +40,27 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from . import forced as _forced
 from . import step as _step
+from .preempt import C_MAX, GP_MAX
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = {"place_scan": CSRC / "place_scan.cu"}
+SOURCES = {"place_scan": CSRC / "place_scan.cu", "forced_eval": CSRC / "forced_eval.cu"}
 #: kernel name -> (source library, C entry point)
 KERNELS = {
     "place_scan": ("place_scan", "place_scan_launch"),
     "place_scan_f32": ("place_scan", "place_scan_f32_launch"),
+    "forced_eval": ("forced_eval", "forced_eval_launch"),
+    "forced_eval_f32": ("forced_eval", "forced_eval_f32_launch"),
 }
 
-#: kernel launches since the last reset, by kernel name
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+#: kernel launches since the last reset, by kernel name; the int scan's
+#: launches that carry a candidate axis are also counted on their own,
+#: as ``place_scan_has_pre``
+LAUNCHES: Dict[str, int] = {name: 0 for name in (*KERNELS, "place_scan_has_pre")}
 #: per kernel: build seconds and the compiler's register/shared-memory
 #: report (``-Xptxas -v``), filled when a build runs in this process
 BUILD_INFO: Dict[str, Dict[str, object]] = {}
@@ -71,9 +86,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on the GPU host")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _compiled_files(source: Path) -> List[Path]:
+    """The source and every local header it includes, transitively."""
+    seen: List[Path] = []
+    todo = [source]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append(path.parent / inc.decode())
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The library's path, keyed by the bytes of every file it compiles:
+    an edit to a shared header rebuilds each library that includes it."""
+    h = hashlib.sha256()
+    for path in _compiled_files(SOURCES[name]):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, ctypes.CDLL]:
@@ -121,7 +157,8 @@ def _lib(name: str) -> ctypes.CDLL:
 # -- place_scan ---------------------------------------------------------------
 
 _INT_FIELDS = ("B", "N", "D", "G", "S", "V", "K", "DP", "V2", "P",
-               "has_reserved", "has_aff", "has_evict", "has_forced")
+               "has_reserved", "has_aff", "has_evict", "has_forced",
+               "has_pre", "C", "GP")
 _PTR_FIELDS = (
     "totals", "reserved", "asks", "feat", "aff_score", "desired", "dh_job",
     "dh_tg", "spread_vids", "spread_desired", "spread_weights",
@@ -133,6 +170,8 @@ _PTR_FIELDS = (
     "limit_p", "sum_sw_p", "ev_factor", "rev_factor", "forced_node",
     "chosen", "scores", "pulls", "skipped",
     "scr_final", "scr_flags",
+    "pre_res", "pre_prio", "pre_elig", "pre_mp", "pre_gid", "pre_evf",
+    "pre_alive", "pre_remaining", "pre_counts", "evict_out",
 )
 
 
@@ -143,17 +182,36 @@ class ScanArgs(ctypes.Structure):
                 + [(f, ctypes.c_void_p) for f in _PTR_FIELDS])
 
 
+_FORCED_INT_FIELDS = ("P", "N", "D", "G", "has_reserved")
+_FORCED_PTR_FIELDS = (
+    "totals", "reserved", "asks", "feat", "desired", "dh_job", "dh_tg",
+    "n_real", "e_ask", "used", "tg_counts", "job_counts", "failed", "e_base",
+    "tg_idx", "forced_node", "chosen", "scores",
+)
+
+
+class ForcedArgs(ctypes.Structure):
+    """Mirror of ``struct ForcedArgs`` in forced_eval.cu."""
+
+    _fields_ = ([(f, ctypes.c_int) for f in _FORCED_INT_FIELDS]
+                + [(f, ctypes.c_void_p) for f in _FORCED_PTR_FIELDS])
+
+
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    if name == "place_scan":
-        for fn in (lib.place_scan_launch, lib.place_scan_f32_launch):
-            fn.argtypes = [ctypes.POINTER(ScanArgs), ctypes.c_void_p]
+    args_t = {"place_scan": ScanArgs, "forced_eval": ForcedArgs}[name]
+    for source, entry in KERNELS.values():
+        if source == name:
+            fn = getattr(lib, entry)
+            fn.argtypes = [ctypes.POINTER(args_t), ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.place_scan_error_string.argtypes = [ctypes.c_int]
-        lib.place_scan_error_string.restype = ctypes.c_char_p
-        lib.place_scan_args_size.argtypes = []
-        lib.place_scan_args_size.restype = ctypes.c_int
-        if lib.place_scan_args_size() != ctypes.sizeof(ScanArgs):
-            raise RuntimeError("ScanArgs layout differs between kernels.py and place_scan.cu")
+    getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
+    getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+    size = getattr(lib, f"{name}_args_size")
+    size.argtypes = []
+    size.restype = ctypes.c_int
+    if size() != ctypes.sizeof(args_t):
+        raise RuntimeError(f"{args_t.__name__} layout differs between kernels.py and "
+                           f"{SOURCES[name].name}")
     return lib
 
 
@@ -163,13 +221,13 @@ I32, I64, U8, BOOL, F32 = torch.int32, torch.int64, torch.uint8, torch.bool, tor
 _MAX_SPREADS = 1024
 
 
-def _shape_check(name, t, dtype, shape) -> None:
+def _shape_check(name, t, dtype, shape, who: str = "place_scan") -> None:
     if t.dtype != dtype:
-        raise TypeError(f"place_scan: {name} has dtype {t.dtype}, expected {dtype}")
+        raise TypeError(f"{who}: {name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"place_scan: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"place_scan: {name} is not contiguous")
+        raise ValueError(f"{who}: {name} is not contiguous")
 
 
 def _scan_dims(static_b, carry_b, xs_b) -> Dict[str, int]:
@@ -193,9 +251,14 @@ def _check_batched(static_b, carry_b, xs_b) -> Dict[str, int]:
             f"place_scan: the kernel has an int32 and a float32 arm (totals dtype {T})")
     m = _scan_dims(static_b, carry_b, xs_b)
     B, N, D, G, S, V, K, DP, V2, P = (m[k] for k in _INT_FIELDS[:10])
-    pre_c = static_b[20].shape[2]
-    if pre_c:
-        raise NotImplementedError("place_scan: preemption (C > 0) is not ported")
+    C = static_b[20].shape[2]
+    GP = carry_b[11].shape[1]
+    if C and T != I32:
+        raise ValueError("place_scan: preemption (C > 0) runs in the int arm only")
+    if C > C_MAX or GP > GP_MAX or (C and GP < 1):
+        raise ValueError(f"place_scan: candidate axis C={C} / count groups GP={GP} outside "
+                         f"the encode gates (C <= {C_MAX}, 1 <= GP <= {GP_MAX})")
+    RN = N if C else 0
     R = static_b[1].shape[1]
     GA = static_b[4].shape[1]
     DE = xs_b[3].shape[2]
@@ -232,6 +295,13 @@ def _check_batched(static_b, carry_b, xs_b) -> Dict[str, int]:
         ("evict_tg", xs_b[4], I32, (B, P)), ("limit_p", xs_b[5], I32, (B, P)),
         ("sum_sw_p", xs_b[6], T, (B, P)), ("ev_factor", xs_b[7], I32, (B, P, EV)),
         ("rev_factor", xs_b[8], I32, (B, P, EV)), ("forced_node", xs_b[9], I32, (B, P, F)),
+        # preemption: candidate tables, their carries
+        ("pre_res", static_b[20], I32, (B, N, C, 4)), ("pre_prio", static_b[21], I32, (B, N, C)),
+        ("pre_elig", static_b[22], BOOL, (B, N, C)), ("pre_mp", static_b[23], I32, (B, N, C)),
+        ("pre_gid", static_b[24], I32, (B, N, C)), ("pre_evf", static_b[25], I32, (B, N, C, 2)),
+        ("pre_alive", carry_b[9], BOOL, (B, N, C)),
+        ("pre_remaining", carry_b[10], I64, (B, RN, 3)),
+        ("pre_counts", carry_b[11], I32, (B, GP)),
     ]
     dev = static_b[0].device
     for name, t, dtype, shape in specs:
@@ -243,7 +313,8 @@ def _check_batched(static_b, carry_b, xs_b) -> Dict[str, int]:
     if S > _MAX_SPREADS:
         raise ValueError(f"place_scan: {S} spreads exceed the kernel's {_MAX_SPREADS}")
     m.update(has_reserved=int(R > 0), has_aff=int(GA > 0),
-             has_evict=int(DE > 0), has_forced=int(F > 0))
+             has_evict=int(DE > 0), has_forced=int(F > 0),
+             has_pre=int(C > 0), C=C, GP=GP)
     return m
 
 
@@ -259,6 +330,8 @@ def _launch_place_scan(static_b, carry_b, xs_b):
     skipped = torch.empty((B, P), dtype=BOOL, device=dev)
     scr_final = torch.empty((B, N), dtype=score_t, device=dev)
     scr_flags = torch.empty((B, N), dtype=U8, device=dev)
+    # the kernel writes the rank of each evicted slot and nothing else
+    evict = torch.full((B, P, m["C"]), -1, dtype=I32, device=dev)
     tensors = {
         "totals": static_b[0], "reserved": static_b[1], "asks": static_b[2],
         "feat": static_b[3], "aff_score": static_b[4], "desired": static_b[5],
@@ -276,6 +349,10 @@ def _launch_place_scan(static_b, carry_b, xs_b):
         "forced_node": xs_b[9],
         "chosen": chosen, "scores": scores, "pulls": pulls, "skipped": skipped,
         "scr_final": scr_final, "scr_flags": scr_flags,
+        "pre_res": static_b[20], "pre_prio": static_b[21], "pre_elig": static_b[22],
+        "pre_mp": static_b[23], "pre_gid": static_b[24], "pre_evf": static_b[25],
+        "pre_alive": carry_b[9], "pre_remaining": carry_b[10], "pre_counts": carry_b[11],
+        "evict_out": evict,
     }
     args = ScanArgs(**{k: m[k] for k in _INT_FIELDS},
                     **{k: tensors[k].data_ptr() for k in _PTR_FIELDS})
@@ -290,7 +367,8 @@ def _launch_place_scan(static_b, carry_b, xs_b):
             f"{name} launch failed: {lib.place_scan_error_string(err).decode()}")
     with _count_lock:
         LAUNCHES[name] += 1
-    evict = torch.zeros((B, P, 0), dtype=I32, device=dev)
+        if m["C"]:
+            LAUNCHES["place_scan_has_pre"] += 1
     return carry_b, (chosen, scores, pulls, skipped, evict)
 
 
@@ -336,7 +414,116 @@ def place_scan(n_pad: int, static, carry, xs):
     return carry, tuple(y[0] for y in ys)
 
 
-def place_scan_work(static, carry, xs, skipped=None) -> Tuple[int, int]:
+# -- forced_eval (K4) ---------------------------------------------------------
+
+
+def _launch_forced_eval(static, carry, xs):
+    totals, reserved, asks = static[0], static[1], static[2]
+    T = totals.dtype
+    n, d = totals.shape
+    g = asks.shape[0]
+    p = xs[0].shape[0]
+    R = reserved.shape[0]
+    if R not in (0, n):
+        raise ValueError("forced_eval: reserved axis malformed")
+    GE, NE = (g, n) if T == I32 else (0, 0)
+    specs = [
+        ("totals", totals, T, (n, d)), ("reserved", reserved, T, (R, d)),
+        ("asks", asks, T, (g, d)), ("feat_packed", static[3], U8, (g, n)),
+        ("desired_counts", static[5], I32, (g,)), ("dh_job", static[6], BOOL, (g,)),
+        ("dh_tg", static[7], BOOL, (g,)), ("n_real", static[15], I32, ()),
+        ("e_ask", static[16], I32, (GE, NE, 2)),
+        ("used", carry[0], T, (n, d)), ("tg_counts", carry[1], I32, (g, n)),
+        ("job_counts", carry[2], I32, (n,)), ("failed", carry[6], BOOL, (g,)),
+        ("e_base", carry[7], I32, (NE, 2)),
+        ("tg_idx", xs[0], I32, (p,)), ("forced_node", xs[9], I32, (p, 1)),
+    ]
+    for name, t, dtype, shape in specs:
+        _shape_check(name, t, dtype, shape, "forced_eval")
+    dev = totals.device
+    float_arm = T == F32
+    chosen = torch.empty(p, dtype=I32, device=dev)
+    scores = torch.empty(p, dtype=F32 if float_arm else I64, device=dev)
+    tensors = {
+        "totals": totals, "reserved": reserved, "asks": asks, "feat": static[3],
+        "desired": static[5], "dh_job": static[6], "dh_tg": static[7],
+        "n_real": static[15], "e_ask": static[16], "used": carry[0],
+        "tg_counts": carry[1], "job_counts": carry[2], "failed": carry[6],
+        "e_base": carry[7], "tg_idx": xs[0], "forced_node": xs[9],
+        "chosen": chosen, "scores": scores,
+    }
+    args = ForcedArgs(P=p, N=n, D=d, G=g, has_reserved=int(R > 0),
+                      **{k: tensors[k].data_ptr() for k in _FORCED_PTR_FIELDS})
+    name = "forced_eval_f32" if float_arm else "forced_eval"
+    source, entry = KERNELS[name]
+    lib = _lib(source)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, entry)(ctypes.byref(args), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: {lib.forced_eval_error_string(err).decode()}")
+    with _count_lock:
+        LAUNCHES[name] += 1
+    return (chosen, scores, torch.zeros(p, dtype=I32, device=dev),
+            torch.zeros(p, dtype=BOOL, device=dev),
+            torch.zeros((p, 0), dtype=I32, device=dev))
+
+
+def forced_eval(static, carry, xs):
+    """K4: one all-distinct forced-node eval (the system encoder's shape)
+    in one launch, the JAX ``forced_eval`` contract ``(static, carry,
+    xs) -> (chosen, scores, pulls, skipped, evict)``. The inputs are not
+    modified. On the CPU the plain version (``forced.py``) runs. The
+    kernel takes no candidate axis and exactly one forced node per
+    placement; anything else raises."""
+    dev = _device_of((*static, *carry, *xs))
+    if static[0].dtype not in (I32, F32):
+        raise NotImplementedError(
+            f"forced_eval: the kernel has an int32 and a float32 arm (totals dtype "
+            f"{static[0].dtype})")
+    if static[20].shape[1] or xs[9].ndim != 2 or xs[9].shape[1] != 1:
+        raise ValueError("forced_eval: takes one forced node per placement and no "
+                         "candidate axis")
+    if dev.type == "cuda":
+        return _launch_forced_eval(static, carry, xs)
+    if dev.type != "cpu":
+        raise ValueError(f"forced_eval: unsupported device {dev}")
+    return _forced.forced_eval(static, carry, xs)
+
+
+def forced_eval_work(static, carry, xs) -> Tuple[int, int]:
+    """(bytes, operations) of one K4 launch. Bytes: each placement's task
+    group and node ids, chosen and score; each forced node's rows
+    (capacity, reservation, usage, the feature byte, job and task-group
+    counts, in the int arm its Q27 factor rows), once per node; the task
+    groups' asks and flags once. Operations: about 40 per placement plus
+    3 per capacity dim, and in the float arm 40 more for its two
+    ``powf``."""
+    totals = static[0]
+    p = xs[0].shape[0]
+    g, d = static[2].shape
+    es = totals.element_size()
+    int_arm = totals.dtype == I32
+    per_placement = 4 + 4 + 4 + (8 if int_arm else 4)
+    per_node = d * es * (2 + (1 if static[1].shape[0] else 0)) + 1 + 4 + 4
+    if int_arm:
+        per_node += 8 + 8                      # e_base and e_ask rows
+    per_tg = d * es + 4 + 2 + 1                # ask, desired, dh flags, failed
+    ops = p * (40 + 3 * d + (0 if int_arm else 40))
+    return p * (per_placement + per_node) + g * per_tg, ops
+
+
+#: operations per greedy key (three Q16 coordinates with a division
+#: each, the 31-round isqrt, the penalty add and compare), per greedy row
+#: set up (penalty and alive bit of each slot) and per second-pass slot
+#: (its distance, its rank among C, the prefix walk)
+PRE_KEY_OPS = 140
+PRE_ROW_OPS_PER_SLOT = 10
+PRE_SECOND_OPS_PER_SLOT = 150
+
+
+def place_scan_work(static, carry, xs, skipped=None, pre_stats=None) -> Tuple[int, int]:
     """(bytes, operations) one eval's scan needs at these inputs: every
     input read once and every output (final carry, per-step outputs)
     written once; operations counted per node and step from the
@@ -345,11 +532,17 @@ def place_scan_work(static, carry, xs, skipped=None) -> Tuple[int, int]:
     slot, and in the float arm 40 more for its two ``powf``), times N,
     over the steps that ran: a step the scan's output marks ``skipped``
     (a failed task group, or a batch's padding) does no node work.
+    With a candidate axis, the preemption work this run's data needed,
+    as the plain version counted it (``step.place_scan(..., stats)``):
+    the greedy keys computed on the rows where the greedy can decide
+    the result, those rows' set-up, and the chosen rows' second pass.
     Feeds the ``bound_ms`` of chip_smoke.py."""
     nbytes = sum(t.numel() * t.element_size() for t in (*static, *carry, *xs))
     nbytes += sum(t.numel() * t.element_size() for t in carry)
     p = xs[0].shape[0]
-    nbytes += p * (4 + static[0].element_size() * (2 if static[0].dtype == I32 else 1) + 4 + 1)
+    c = static[20].shape[1]
+    nbytes += p * (4 + static[0].element_size() * (2 if static[0].dtype == I32 else 1) + 4 + 1
+                   + 4 * c)
     run = torch.ones(p, dtype=torch.bool) if skipped is None else ~skipped.cpu().bool()
     n, d = static[0].shape
     tg_run = xs[0].cpu().to(torch.int64)[run]
@@ -359,16 +552,27 @@ def place_scan_work(static, carry, xs, skipped=None) -> Tuple[int, int]:
     k = xs[1].shape[-1]
     per_step = 60 + 3 * d + 8 * dp + k + (40 if static[0].dtype == F32 else 0)
     ops = n * (int(tg_run.numel()) * per_step + 25 * spreads)
+    if c:
+        if pre_stats is None:
+            raise ValueError("place_scan_work: a candidate axis needs the plain "
+                             "version's preemption stats")
+        ops += (PRE_KEY_OPS * pre_stats.get("greedy_keys", 0)
+                + PRE_ROW_OPS_PER_SLOT * c * pre_stats.get("greedy_rows", 0)
+                + PRE_SECOND_OPS_PER_SLOT * c * pre_stats.get("second_pass_rows", 0))
     return nbytes, ops
 
 
-def place_scan_batched_work(static_b, carry_b, xs_b, skipped_b=None) -> Tuple[int, int]:
-    """``place_scan_work`` of a K3 launch: summed over the batch's evals."""
+def place_scan_batched_work(static_b, carry_b, xs_b, skipped_b=None,
+                            pre_stats_b=None) -> Tuple[int, int]:
+    """``place_scan_work`` of a K3 launch: summed over the batch's evals
+    (``pre_stats_b``: one stats dict per eval, where the batch has a
+    candidate axis)."""
     nbytes = ops = 0
     for b in range(static_b[0].shape[0]):
         nb, op = place_scan_work(
             tuple(t[b] for t in static_b), tuple(t[b] for t in carry_b),
-            tuple(t[b] for t in xs_b), None if skipped_b is None else skipped_b[b])
+            tuple(t[b] for t in xs_b), None if skipped_b is None else skipped_b[b],
+            None if pre_stats_b is None else pre_stats_b[b])
         nbytes += nb
         ops += op
     return nbytes, ops

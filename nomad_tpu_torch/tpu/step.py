@@ -32,8 +32,19 @@ Every branch a generic eval takes is covered in both arms:
   * the packed-lane ring cumsum (n_pad < PACK_COUNT_MAX) and the two
     plain cumsums above it.
 
-Preemption (a candidate axis C > 0) raises: its kernels come with the
-preemption slice.
+Preemption (a candidate axis C > 0, the ``has_pre`` branch,
+``engine.py:383-409`` and ``:761-832``) runs in the int arm only, as the
+reference builds it: a node that fails on capacity may be rescued by an
+eviction set of lower-priority allocs (``preempt.greedy_select_t``),
+and the chosen node's set is filtered by the second pass
+(``preempt.second_pass_t``) and committed to the carry. The greedy runs
+only on the rows where it can change the result (feasible by features,
+distinct_hosts, the forced node and distinct_property, real, and not
+fitting outright); everywhere else ``cap_ok = fits | met`` equals what
+the other masks already decide, so the outputs are the JAX step's. Nor
+does it run where evicting every alive eligible slot would still not
+meet the ask (the greedy takes a subset of them, so met stays false). A
+float32 eval with a candidate axis raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -43,6 +54,7 @@ from typing import List, Tuple
 import torch
 
 from .encode import DIM_CPU, DIM_MEM
+from .preempt import CQ_ONE, PENALTY_UNIT, greedy_select_t, second_pass_t
 from .intscore import (
     BIG_FP,
     E27_BITS,
@@ -79,9 +91,9 @@ def _check_arm(static) -> None:
     if totals.dtype not in (I32, F32):
         raise NotImplementedError(
             f"the scan has an int32 and a float32 arm (got {totals.dtype})")
-    if pre_res.shape[1] > 0:
-        raise NotImplementedError(
-            "preemption (candidate axis C > 0) is not ported")
+    if pre_res.shape[1] > 0 and totals.dtype != I32:
+        raise ValueError(
+            "preemption (candidate axis C > 0) runs in the int arm only")
 
 
 def _gather_vid(table, vids):
@@ -93,16 +105,31 @@ def _gather_vid(table, vids):
     return torch.where(ok, got, torch.zeros_like(got))
 
 
-def _step(static, carry, x, skip_step: bool):
+def _preempt_penalty(pre_gid, pre_mp, pre_counts):
+    """The max_parallel penalty of each candidate slot (Q16 int64) from
+    the preemptions already planned for its (job, ns, tg) group
+    (engine.py:387-400); an id outside [0, GP) counts 0."""
+    gp = pre_counts.shape[0]
+    ok = (pre_gid >= 0) & (pre_gid < gp)
+    num_pre = torch.where(ok, pre_counts[pre_gid.clamp(0, gp - 1).to(I64)],
+                          torch.zeros_like(pre_gid))
+    return torch.where(
+        (pre_mp > 0) & (num_pre >= pre_mp),
+        ((num_pre + 1) - pre_mp).to(I64) * PENALTY_UNIT * CQ_ONE,
+        torch.zeros_like(pre_mp, dtype=I64))
+
+
+def _step(static, carry, x, skip_step: bool, stats=None):
     """One placement. ``carry`` is updated in place (the caller owns
-    clones of the initial carry); returns the step's outputs."""
+    clones of the initial carry); returns the step's outputs. ``stats``
+    (a dict or None) counts the preemption work the step did."""
     (totals, reserved, asks, feat_packed, aff_score, desired_counts,
      dh_job, dh_tg, _limits, spread_vids, spread_desired, spread_weights,
      spread_has_targets, spread_active, _sum_spread_weights, n_real,
      e_ask, dp_vids, dp_limit, dp_applies,
-     _pre_res, _pre_prio, _pre_elig, _pre_mp, _pre_gid, _pre_evf) = static
+     pre_res, pre_prio, pre_elig, pre_mp, pre_gid, pre_evf) = static
     (used, tg_counts, job_counts, spread_counts, spread_entry, offset_t,
-     failed, e_base, dp_counts, _pre_alive, _pre_remaining, _pre_counts) = carry
+     failed, e_base, dp_counts, pre_alive, pre_remaining, pre_counts) = carry
     (g, penalty_idx, evict_node, evict_res, evict_tg, limit, sum_sw,
      ev_factor, rev_factor, forced_node) = x
 
@@ -158,7 +185,8 @@ def _step(static, carry, x, skip_step: bool):
         dh_mask = ~((tg_counts_g > 0) & (job_counts > 0))
     else:
         dh_mask = torch.ones(n_pad, dtype=torch.bool, device=dev)
-    feasible = feas_g & fits & dh_mask
+    # every mask but capacity (the AND is order-free)
+    feasible = feas_g & dh_mask
     unforced = True
     if forced_node.shape[-1]:
         fnode = int(forced_node[0])
@@ -172,6 +200,34 @@ def _step(static, carry, x, skip_step: bool):
         dp_ok = (~dp_applies_g[:, None]) | (
             (~dp_missing) & (dp_cnt_n < dp_limit[:, None]))
         feasible = feasible & dp_ok.all(dim=0)
+
+    # -- device-side preemption (engine.py:383-409) -----------------------
+    # cap_ok = fits | met; the greedy runs only on the rows where met can
+    # decide feasibility (the module doc) and can be reached at all
+    has_pre = pre_res.shape[1] > 0
+    if has_pre:
+        ask3 = ask[:3].to(I64)
+        pen = _preempt_penalty(pre_gid, pre_mp, pre_counts)        # [N, C]
+        # a row can meet the ask only if evicting every alive eligible
+        # slot would: the greedy takes a subset of them
+        alive_e = pre_alive & pre_elig
+        res3 = pre_res[:, :, :3].to(I64)
+        most = pre_remaining + torch.where(alive_e[:, :, None], res3,
+                                           torch.zeros_like(res3)).sum(dim=1)
+        can_meet = (most >= ask3[None, :]).all(dim=1)
+        rows = torch.nonzero(feasible & ~fits & (iota < n_real_i) & can_meet).flatten()
+        met = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+        sel_ord = None
+        if rows.numel():
+            sel_ord, met_rows = greedy_select_t(
+                ask3, res3[rows], pre_prio[rows], pen[rows], alive_e[rows],
+                pre_remaining[rows], stats)
+            met[rows] = met_rows
+        if stats is not None:
+            stats["greedy_rows"] = stats.get("greedy_rows", 0) + int(rows.numel())
+        feasible = feasible & (fits | met)
+    else:
+        feasible = feasible & fits
 
     # -- score terms (engine.py:438-639) ----------------------------------
     if penalty_idx.shape[-1] == 0:
@@ -263,6 +319,44 @@ def _step(static, carry, x, skip_step: bool):
         if dp_vids.shape[0]:
             _add_vid(dp_counts, dp_vids[:, ch], dp_applies_g.to(I32))
 
+    # -- commit the eviction set on the chosen node (engine.py:761-832) ---
+    # Only where the chosen node did not fit outright: it then was one of
+    # the greedy rows above. Its greedy set is filtered by the second
+    # pass against the fresh ask.
+    evict_out = None
+    if has_pre:
+        c_w = pre_res.shape[1]
+        evict_out = torch.full((c_w,), -1, dtype=I32, device=dev)
+        if success and not bool(fits[chosen]):
+            ch = chosen
+            res3_ch = pre_res[ch, :, :3].to(I64)
+            sel_ord_ch = sel_ord[int(torch.searchsorted(rows, ch))]
+            keep, p_rank = second_pass_t(ask3, res3_ch, sel_ord_ch, pre_remaining[ch])
+            if stats is not None:
+                stats["second_pass_rows"] = stats.get("second_pass_rows", 0) + 1
+            # freed capacity credits `used` after the score terms (the
+            # alloc stayed overcommitted for scoring); dims past 4 free
+            # nothing
+            freed4 = torch.where(keep[:, None], pre_res[ch],
+                                 torch.zeros_like(pre_res[ch])).sum(dim=0, dtype=I32)
+            used[ch, :4] -= freed4
+            if e_base.shape[0]:
+                # running Q27 product over the kept slots in slot order
+                # (not associative: the order is the reference's)
+                eb = e_base[ch].to(I64)
+                for ci in torch.nonzero(keep).flatten().tolist():
+                    eb = (eb * pre_evf[ch, ci].to(I64)) >> E27_BITS
+                e_base[ch] = eb.to(I32)
+            pre_alive[ch] &= ~keep
+            pre_remaining[ch] += torch.where(keep[:, None], res3_ch,
+                                             torch.zeros_like(res3_ch)).sum(dim=0)
+            gids = pre_gid[ch][keep]
+            gp = pre_counts.shape[0]
+            for gid in gids.tolist():
+                if 0 <= gid < gp:
+                    pre_counts[gid] += 1
+            evict_out = torch.where(keep, p_rank.to(I32), evict_out)
+
     # -- failed placement: revert eviction, mark TG failed (:835-857) -----
     if has_evict and do_evict and not success:
         used[ev_node] += evict_res
@@ -277,7 +371,7 @@ def _step(static, carry, x, skip_step: bool):
     if not success and not skip_step and unforced:
         failed[g] = True
 
-    return chosen, (best_score if success else 0), pulls
+    return chosen, (best_score if success else 0), pulls, evict_out
 
 
 def _spread_lookup(t):
@@ -457,10 +551,12 @@ def _or_vid(entry, vids, flags) -> None:
             entry[s, vid] = True
 
 
-def place_scan(n_pad: int, static, carry, xs) -> Tuple[tuple, tuple]:
+def place_scan(n_pad: int, static, carry, xs, stats=None) -> Tuple[tuple, tuple]:
     """Scan the step over the eval's placements. Pure: the input carry is
     not modified; returns ``(final_carry, (chosen, scores, pulls,
-    skipped, evict))`` on the inputs' device."""
+    skipped, evict))`` on the inputs' device. ``stats``, a dict, gains
+    the preemption work done (``greedy_rows``, ``greedy_keys``,
+    ``second_pass_rows``), which ``kernels.place_scan_work`` counts."""
     _check_arm(static)
     if static[0].shape[0] != n_pad:
         raise ValueError(f"n_pad {n_pad} != node axis {static[0].shape[0]}")
@@ -477,10 +573,13 @@ def place_scan(n_pad: int, static, carry, xs) -> Tuple[tuple, tuple]:
     # the int arm reads the weight sum as an exact Python int, the float
     # arm as the f32 element itself
     sw_l = list(sum_sw_p) if float_arm else sum_sw_p.tolist()
+    dev = static[0].device
     chosen: List[int] = []
     scores: list = []
     pulls: List[int] = []
     skipped: List[bool] = []
+    # the evict column: second-pass rank of each evicted slot, else -1
+    evict = torch.full((p_count, static[20].shape[1]), -1, dtype=I32, device=dev)
     for p in range(p_count):
         g = tg_l[p]
         skip_step = bool(failed[g])
@@ -494,17 +593,18 @@ def place_scan(n_pad: int, static, carry, xs) -> Tuple[tuple, tuple]:
             continue
         x = (g, penalty_idx[p], ev_node_l[p], evict_res[p], ev_tg_l[p],
              limit_l[p], sw_l[p], ev_factor[p], rev_factor[p], forced_node[p])
-        c, s, n = _step(static, carry, x, skip_step)
+        c, s, n, ev = _step(static, carry, x, skip_step, stats)
         chosen.append(c)
         scores.append(s)
         pulls.append(n)
         skipped.append(skip_step)
-    dev = static[0].device
+        if ev is not None:
+            evict[p] = ev
     ys = (
         torch.tensor(chosen, dtype=I32, device=dev),
         torch.tensor(scores, dtype=F32 if float_arm else I64, device=dev),
         torch.tensor(pulls, dtype=I32, device=dev),
         torch.tensor(skipped, dtype=torch.bool, device=dev),
-        torch.zeros((p_count, 0), dtype=I32, device=dev),
+        evict,
     )
     return carry, ys

@@ -110,6 +110,54 @@ def test_heterogeneous_batch_matches_single(dtype):
         assert_same(single, batch_r, f"eval {i}")
 
 
+def preempt_enc(n_nodes, n_placements, seed, c=None, variant="preempt"):
+    """An int-arm EncodedEval with a candidate axis (the ``preempt`` or
+    ``preempt_forced`` variant), cut to ``c`` slots per node."""
+    from nomad_tpu_torch.tpu.engine import example_scan_variant
+
+    n_pad, static, carry, xs = example_scan_variant(
+        variant, n_nodes=n_nodes, n_tgs=2, n_placements=n_placements, seed=seed)
+    if c is not None:
+        static = static[:20] + tuple(a[:, :c] for a in static[20:])
+        carry = carry[:9] + (carry[9][:, :c],) + carry[10:]
+    return EncodedEval(
+        n_real=n_nodes, n_pad=n_pad, g=2, s=static[9].shape[1],
+        v=static[10].shape[2], p=n_placements, dtype=np.int32,
+        static=static, carry=carry, xs=xs,
+        missing_list=[], nodes=[], table=None, start_ns=0)
+
+
+def test_mixed_preemption_batch_matches_single():
+    """Evals with no candidate axis (C = 0), with C = 5 and with C = 16,
+    and a system preempt pass, in one batch: each gives exactly its
+    single run, the evict column included (widened to the batch's C with
+    -1 in the slots it does not have)."""
+    encs = [
+        synthetic_enc(40, 2, 9, seed=11, dtype=np.int32),
+        preempt_enc(48, 12, seed=12, c=5),
+        preempt_enc(30, 7, seed=13),
+        synthetic_enc(20, 1, 4, n_spreads=0, seed=14, dtype=np.int32),
+        preempt_enc(36, 10, seed=15, variant="preempt_forced"),
+    ]
+    singles = [engine().run_scan_single(e) for e in encs]
+    batcher = DeviceBatcher(max_batch=len(encs), window_ms=2000.0, device="cpu")
+    try:
+        batched, errors = run_concurrent(batcher, encs)
+    finally:
+        batcher.stop()
+    assert errors == [None] * len(encs)
+    assert batcher.stats["dispatches"] == 1
+    evicting = 0
+    for i, (single, batch_r) in enumerate(zip(singles, batched)):
+        assert_same(single, batch_r, f"eval {i}")
+        own, wide = np.asarray(single[4]), np.asarray(batch_r[4])
+        assert wide.shape == (encs[i].p, 16)
+        np.testing.assert_array_equal(wide[:, :own.shape[1]], own)
+        assert (wide[:, own.shape[1]:] == -1).all()
+        evicting += int((own >= 0).any())
+    assert evicting == 3
+
+
 @pytest.mark.parametrize("dtype", ARMS)
 def test_uneven_batch_padding(dtype):
     """3 evals -> batch padded to 8; the inert pad copies do not perturb

@@ -98,3 +98,67 @@ def test_float_batched_equals_single_launches(cuda):
     carry_b, ys_b = kernels.place_scan_batched(*convert.scan_inputs_to_torch(*stacked, cuda))
     for b, single in enumerate(singles):
         assert _equal((tuple(t[b] for t in carry_b), tuple(y[b] for y in ys_b)), single)
+
+
+@pytest.mark.parametrize("variant", ["preempt", "preempt_forced"])
+def test_has_pre_kernel_equals_plain(cuda, variant):
+    """The scan's preemption branch (int arm) against its plain version:
+    every output, the evict column and the final carry, bit for bit."""
+    from nomad_tpu_torch.tpu.engine import example_scan_variant as variant_inputs
+
+    n_pad, st, ca, xs = variant_inputs(variant, n_nodes=700, n_tgs=3, n_placements=64, seed=4)
+    s, c, x = convert.scan_inputs_to_torch(st, ca, xs, cuda)
+    plain = step.place_scan(n_pad, s, c, x)
+    before = dict(kernels.LAUNCHES)
+    out = kernels.place_scan(n_pad, s, tuple(t.clone() for t in c), x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["place_scan"] == before["place_scan"] + 1
+    assert kernels.LAUNCHES["place_scan_has_pre"] == before["place_scan_has_pre"] + 1
+    assert _equal(out, plain)
+    assert (out[1][4] >= 0).any()
+
+
+def test_has_pre_batched_mixed_c_equals_single_launches(cuda):
+    """Three evals, one without a candidate axis, through the
+    DeviceBatcher on the card (one launch) against single launches."""
+    from nomad_tpu_torch.tpu.batcher import DeviceBatcher
+    from nomad_tpu_torch.tpu.engine import TorchPlacementEngine
+
+    from test_torch_batcher import preempt_enc, run_concurrent, synthetic_enc
+
+    encs = [preempt_enc(300, 24, seed=1), synthetic_enc(200, 2, 9, seed=2, dtype=np.int32),
+            preempt_enc(250, 20, seed=3, c=5)]
+    engine = TorchPlacementEngine.shared(cuda)
+    singles = [engine.run_scan_single(e) for e in encs]
+    batcher = DeviceBatcher(max_batch=len(encs), window_ms=2000.0, device=cuda)
+    try:
+        batched, errors = run_concurrent(batcher, encs)
+    finally:
+        batcher.stop()
+    assert errors == [None] * len(encs) and batcher.stats["dispatches"] == 1
+    for single, got in zip(singles, batched):
+        for a, b in zip(single[:4], got[:4]):
+            assert np.array_equal(a, b)
+        c = single[4].shape[1]
+        assert np.array_equal(single[4], got[4][:, :c])
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32], ids=["int", "float"])
+@pytest.mark.parametrize("device_dims", [0, 2])
+def test_forced_kernel_equals_plain_and_scan(cuda, dtype, device_dims):
+    """K4 against its plain version and against the scan kernel on the
+    same input, bit for bit in both arms, with a padded placement axis."""
+    from nomad_tpu_torch.tpu.engine import example_forced_variant
+
+    n_pad, st, ca, xs = example_forced_variant(n_nodes=600, n_placements=500, seed=3,
+                                               dtype=dtype, device_dims=device_dims)
+    s, c, x = convert.scan_inputs_to_torch(st, ca, xs, cuda)
+    name = "forced_eval" if dtype == np.int32 else "forced_eval_f32"
+    before = kernels.LAUNCHES[name]
+    got = kernels.forced_eval(s, c, x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    plain = kernels._forced.forced_eval(s, c, x)
+    assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, plain))
+    _, scan = kernels.place_scan(n_pad, s, tuple(t.clone() for t in c), x)
+    assert torch.equal(got[0].cpu(), scan[0].cpu()) and torch.equal(got[1].cpu(), scan[1].cpu())

@@ -313,21 +313,47 @@ def test_port_float_plans_within_bound_of_jax(name, monkeypatch):
     assert counters.count("nomad.tpu_engine.fallback") == 0
 
 
-def test_preemption_enabled_eval_is_unported(monkeypatch):
+def test_preemption_enabled_eval_runs_on_the_device(monkeypatch):
+    """A service eval with service preemption enabled is handled by the
+    engine (the scan's has_pre branch) and returns a non-empty evict
+    column: the high-priority job evicts low-priority allocs."""
     counters = _Counters(monkeypatch)
+    from nomad_tpu_torch.tpu.engine import TorchPlacementEngine
+
+    evicts = []
+    orig = TorchPlacementEngine.run_scan_single
+
+    def spy(self, enc):
+        out = orig(self, enc)
+        evicts.append(out[4])
+        return out
+
+    monkeypatch.setattr(TorchPlacementEngine, "run_scan_single", spy)
     h = TorchHarness(device="cpu")
     cfg = tstructs.SchedulerConfiguration(scheduler_algorithm="tpu_binpack")
     cfg.preemption_config.service_scheduler_enabled = True
     h.state.scheduler_set_config(h.next_index(), cfg)
-    for n in make_nodes(TORCH, 10, seed=12):
+    for i in range(6):
+        n = tmock.node()
+        n.id = f"00120000-0000-4000-8000-{i:012d}"
+        n.node_resources.cpu_shares = 2000
+        n.node_resources.memory_mb = 4096
+        n.compute_class()
         h.state.upsert_node(h.next_index(), n)
-    job = tmock.job()
-    job.id = "pre"
-    job.task_groups[0].count = 2
-    register(TORCH, h, job)
-    assert counters.count("nomad.tpu_engine.unported.preemption") == 1
-    assert counters.count("nomad.tpu_engine.handled") == 0
-    assert len(view(h)[0]) == 2
+    for job_id, prio, count, cpu in (("low", 20, 6, 1500), ("pre", 70, 2, 1000)):
+        job = tmock.job()
+        job.id = job_id
+        job.priority = prio
+        job.task_groups[0].count = count
+        job.task_groups[0].tasks[0].resources.cpu = cpu
+        job.task_groups[0].tasks[0].resources.networks = []
+        register(TORCH, h, job)
+    assert counters.count("nomad.tpu_engine.handled") == 2
+    assert counters.count("nomad.tpu_engine.fallback") == 0
+    assert len(evicts) == 2 and evicts[1].shape[1] > 0
+    assert (evicts[1] >= 0).any(axis=1).all()
+    assert len(view(h)[0]) == 8
+    assert sum(len(v) for v in h.plans[1].node_preemptions.values()) == 2
 
 
 def test_c1m_evals_port_equals_jax_at_1000_nodes():

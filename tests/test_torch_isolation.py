@@ -88,6 +88,83 @@ def test_port_runs_with_jax_and_nomad_tpu_blocked():
     assert "ISOLATED-OK" in out.stdout
 
 
+_BLOCKED_SYSTEM_RUN = _BLOCKED_RUN.split("h = Harness(device=\"cpu\")")[0] + textwrap.dedent("""
+    from nomad_tpu_torch.structs.structs import Constraint, PreemptionConfig
+    from nomad_tpu_torch.tpu import kernels
+
+    seen = []
+    orig_scan, orig_forced = kernels.place_scan, kernels.forced_eval
+
+    def scan(n_pad, static, carry, xs):
+        seen.append(("place_scan", static[20].shape[1]))
+        return orig_scan(n_pad, static, carry, xs)
+
+    def forced(static, carry, xs):
+        seen.append(("forced_eval", 0))
+        return orig_forced(static, carry, xs)
+
+    kernels.place_scan, kernels.forced_eval = scan, forced
+    h = Harness(device="cpu")
+    h.state.scheduler_set_config(h.next_index(), SchedulerConfiguration(
+        preemption_config=PreemptionConfig(system_scheduler_enabled=True,
+                                           service_scheduler_enabled=True)))
+    for i in range(6):
+        n = mock.node()
+        n.id = "node-%d" % i
+        n.node_resources.cpu_shares = 2000
+        n.node_resources.memory_mb = 4096
+        n.attributes["rack"] = "r1" if i < 3 else "r2"
+        n.compute_class()
+        h.state.upsert_node(h.next_index(), n)
+
+    def run(job, kind, rack=None):
+        if rack:
+            job.constraints.append(Constraint(ltarget="${{attr.rack}}", rtarget=rack, operand="="))
+        job.task_groups[0].tasks[0].resources.networks = []
+        h.state.upsert_job(h.next_index(), job)
+        h.process(kind, Evaluation(priority=job.priority, type=kind,
+                  triggered_by="job-register", job_id=job.id, namespace=job.namespace))
+
+    low = mock.job()
+    low.priority = 20
+    low.task_groups[0].count = 6
+    low.task_groups[0].tasks[0].resources.cpu = 1500
+    run(low, "service")
+    sysjob = mock.system_job()
+    sysjob.task_groups[0].tasks[0].resources.cpu = 700
+    run(sysjob, "system", "r1")
+    high = mock.job()
+    high.priority = 70
+    high.task_groups[0].count = 2
+    high.task_groups[0].tasks[0].resources.cpu = 1200
+    run(high, "service", "r2")
+    victims = [sum(len(v) for v in p.node_preemptions.values()) for p in h.plans]
+    assert victims[1] > 0 and victims[2] > 0, victims
+    assert ("forced_eval", 0) in seen, seen
+    assert sum(1 for name, c in seen if name == "place_scan" and c > 0) >= 2, seen
+    assert calls.count("nomad.tpu_engine.handled") == 3, calls
+    assert "nomad.tpu_engine.fallback" not in calls, calls
+    assert not any("unported" in c for c in calls), calls
+    assert not any(m == "nomad_tpu" or m.startswith("nomad_tpu.") for m in sys.modules)
+    assert sys.modules.get("jax") is None
+    print("SYSTEM-ISOLATED-OK")
+""")
+
+
+def test_system_and_preempting_evals_run_with_jax_and_nomad_tpu_blocked():
+    """A system eval (the forced-node kernel, then its preempt pass) and
+    a preempting service eval (the scan's has_pre branch), through the
+    port's Harness on the CPU, in a process where importing jax or
+    anything of nomad_tpu fails."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_SYSTEM_RUN.format(repo=str(REPO))],
+        capture_output=True, text=True, timeout=240, env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "SYSTEM-ISOLATED-OK" in out.stdout
+
+
 def test_default_device_without_cuda_raises(monkeypatch):
     """Entry points default to CUDA; with none present they raise rather
     than place on the host."""

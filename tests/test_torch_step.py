@@ -106,15 +106,6 @@ def test_wrapper_updates_carry_in_place():
     assert not torch.equal(ca[0], used0)
 
 
-def test_preemption_axis_raises():
-    n_pad, static, carry, xs = example_scan_variant("s0", n_nodes=40, seed=1)
-    static = list(static)
-    static[20] = np.zeros((n_pad, 1, 4), np.int32)  # pre_res with C = 1
-    st, ca, x = convert.scan_inputs_to_torch(static, carry, xs, "cpu")
-    with pytest.raises(NotImplementedError, match="preemption"):
-        kernels.place_scan(n_pad, st, ca, x)
-
-
 def test_other_dtypes_raise():
     """The scan has an int32 and a float32 arm; a float64 encode raises."""
     n_pad, static, carry, xs = example_scan_variant("s0", n_nodes=40, seed=1)
@@ -139,7 +130,9 @@ def test_cpu_scan_launches_no_kernel():
     kernels.reset_launch_counts()
     n_pad, static, carry, xs = example_scan_variant("s1", n_nodes=40, seed=6)
     _torch_run(n_pad, static, carry, xs)
-    assert kernels.LAUNCHES == {"place_scan": 0, "place_scan_f32": 0}
+    assert kernels.LAUNCHES == {name: 0 for name in kernels.LAUNCHES}
+    assert set(kernels.LAUNCHES) == {"place_scan", "place_scan_f32", "place_scan_has_pre",
+                                     "forced_eval", "forced_eval_f32"}
 
 
 @pytest.mark.parametrize("scenario", ["affinities", "scale_up_down", "distinct_property",
@@ -167,3 +160,29 @@ def test_plain_scan_on_jax_encoded_evals(scenario, monkeypatch):
         _, torch_ys = _torch_run(n_pad, static, carry, xs)
         for a, b in zip(jax_ys, torch_ys):
             assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_build_key_covers_included_headers(tmp_path, monkeypatch):
+    """A library's build key hashes its source and every csrc/ header it
+    includes: editing the shared header rebuilds both libraries, editing
+    one source only its own."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    monkeypatch.setattr(kernels, "SOURCES", {
+        name: csrc / path.name for name, path in kernels.SOURCES.items()})
+    names = sorted(kernels.SOURCES)
+    assert names == ["forced_eval", "place_scan"]
+    for name in names:
+        assert csrc / "common.cuh" in kernels._compiled_files(kernels.SOURCES[name])
+    before = {name: kernels._lib_path(name) for name in names}
+    header = csrc / "common.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {name: kernels._lib_path(name) for name in names}
+    assert all(after[n] != before[n] for n in names)
+    src = csrc / "forced_eval.cu"
+    src.write_bytes(src.read_bytes() + b"\n")
+    again = {name: kernels._lib_path(name) for name in names}
+    assert again["place_scan"] == after["place_scan"]
+    assert again["forced_eval"] != after["forced_eval"]
