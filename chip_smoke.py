@@ -62,7 +62,21 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    batched launch of each server run, every K4 launch, the two has_pre
    launches of the system slice that evicted on the most steps): kernel
    vs plain (int bit for bit, float within the bound), with the kernel's
-   time, the plain version's time and the kernel's bound on this card.
+   time, the plain version's time and the kernel's bound on this card;
+12. the chunked tier (K5, after phase 6): the chunk kernel against its
+   plain version on the card (every step's chosen set equal, integer
+   outputs exact, scores within 1e-5, top_idx equal over all K slots)
+   on bench.py's full C1M chunk run (5,000 nodes, 8 task groups,
+   1,000,000 placements, bulk K = 1,024 then a tail at K = 256 with 12
+   retry rounds and the deficit handed over), spread + affinity,
+   distinct_hosts, a capacity-tight fleet and n_pad >= 32,768, with
+   torch.topk's time on a step's row beside it; then (after phase 8)
+   the server slice at defaults but scheduler_algorithm =
+   "tpu_binpack_chunked": every placement committed, no node
+   overcommitted, every job's eval through the chunk kernel and none
+   fallen back, the sampled-parity tally printed; every chunk launch
+   replayed kernel vs plain, and every chunked eval's encode run
+   through the exact float scan kernel to print the tier's divergence.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -386,6 +400,165 @@ def phase_has_pre(kernels, step, convert, engine):
         f"launches: yes batched_ms={b_ms:.3f}")
 
 
+C1M_PLACEMENTS = 1_000_000
+C1M_TGS = 8
+BULK_K, TAIL_K, TAIL_RETRY_ROUNDS = 1024, 256, 12
+
+
+def c1m_chunk_schedules(chunk):
+    """bench.py ``bench_c1m_chunked`` (:232-258): 1,000,000 placements
+    over 8 task groups, 88 % of each in bulk chunks of K = 1,024, the rest
+    in tail chunks of K = 256 with 12 retry rounds."""
+    per_tg = C1M_PLACEMENTS // C1M_TGS
+    bulk = int(per_tg * 0.88)
+    xs_bulk = chunk.chunk_schedule([(g, bulk) for g in range(C1M_TGS)], BULK_K)
+    xs_tail = chunk.chunk_schedule([(g, per_tg - bulk) for g in range(C1M_TGS)], TAIL_K,
+                                   retry_rounds=TAIL_RETRY_ROUNDS)
+    return xs_bulk, xs_tail
+
+
+def run_chunk_phases(chunk_fn, n_pad, static, carry, phases):
+    """Run ``phases`` ([(xs, K)]) in order through ``chunk_fn`` (the
+    kernel's wrapper or the plain version), each fed the carry and the
+    deficit of the one before; returns [(carry, deficit, ys)] per phase.
+    The given carry is not modified."""
+    carry = tuple(t.clone() for t in carry)
+    deficit, outs = None, []
+    for xs, k in phases:
+        carry, deficit, ys = chunk_fn(n_pad, static, carry, xs, deficit, chunk=k)
+        outs.append((carry, deficit, ys))
+        carry = tuple(t.clone() for t in carry)
+        deficit = deficit.clone()
+    return outs
+
+
+def phase_chunk_variants(kernels, chunk, convert, engine, parity):
+    """K5 against its plain version on the card (``parity.check_chunk_scan``:
+    every step's chosen set equal, integer outputs and integer-valued
+    carries exact, scores within 1e-5, top_idx equal over all K slots):
+    the full C1M chunk run of bench.py (5,000 nodes, 8 task groups,
+    1,000,000 placements, bulk K = 1,024 then a tail at K = 256 with 12
+    retry rounds and the bulk's deficit handed over), then spread +
+    affinity, distinct_hosts, a capacity-tight fleet whose deficit
+    drains through retry rounds, and n_pad >= 32,768. Prints the placed
+    count, the kernel's and the plain version's ms, the bound and
+    torch.topk's time on the step's masked row (a yardstick for the
+    selection alone). Returns (worst |dscore|, records)."""
+    import torch
+
+    xs_bulk, xs_tail = c1m_chunk_schedules(chunk)
+    cases = [
+        ("c1m", N_NODES, C1M_TGS, [(xs_bulk, BULK_K), (xs_tail, TAIL_K)]),
+        ("spread_affinity", N_NODES, 3,
+         [(chunk.chunk_schedule([(0, 3000), (1, 2000), (2, 1000)], 128, retry_rounds=2), 128)]),
+        ("distinct_hosts", N_NODES, 2,
+         [(chunk.chunk_schedule([(0, 2500), (1, 2500)], 256, retry_rounds=2), 256)]),
+        ("tight", N_NODES, 2,
+         [(chunk.chunk_schedule([(0, 100), (1, 80)], 128), 128),
+          (chunk.chunk_schedule([(0, 20), (1, 20)], 64, retry_rounds=4), 64)]),
+        ("open", 33000, 2,
+         [(chunk.chunk_schedule([(0, 20000), (1, 15000)], 1024, retry_rounds=2), 1024)]),
+    ]
+    worst, recs = 0.0, []
+    for variant, n_nodes, n_tgs, phases in cases:
+        n_pad, st, ca = engine.example_chunk_variant(variant, n_nodes=n_nodes, n_tgs=n_tgs,
+                                                     seed=0)
+        s, c, _ = convert.scan_inputs_to_torch(st, ca, (), DEVICE)
+        ph = [(convert.to_torch(xs, DEVICE), k) for xs, k in phases]
+        got = run_chunk_phases(kernels.chunk_scan, n_pad, s, c, ph)
+        plain, p_ms = timed_wall(lambda: run_chunk_phases(chunk.chunk_scan, n_pad, s, c, ph))
+        for i, (ref, out) in enumerate(zip(plain, got)):
+            div, diff, all_slots, exact = parity.check_chunk_scan(ref, out, f"K5 {variant} phase {i}")
+            if not all_slots:
+                raise AssertionError(f"K5 {variant} phase {i}: top_idx differs from plain")
+            worst = max(worst, diff)
+        k_ms = cuda_ms(lambda: run_chunk_phases(kernels.chunk_scan, n_pad, s, c, ph))
+        steps = sum(int(xs[0].shape[0]) for xs, _ in ph)
+        placed = sum(int(out[2][3].sum()) for out in got)
+        nbytes = ops = 0
+        for (xs, k), out in zip(ph, got):
+            nb, op = kernels.chunk_scan_work(s, c, xs, k, out[2][3])
+            nbytes, ops = nbytes + nb, ops + op
+        b_ms, b_by = bound(nbytes, ops)
+        # torch.topk over the first step's masked row at the first K
+        row = chunk.masked_scores(s, c, int(ph[0][0][0][0]))
+        k0 = ph[0][1]
+        topk_ms = cuda_ms(lambda: torch.topk(row, k0), reps=21)
+        rec = {"variant": variant, "n_pad": n_pad, "steps": steps, "placed": placed,
+               "deficit": int(got[-1][1].sum()), "kernel_ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "topk_ms": topk_ms, "max_abs_err": worst}
+        recs.append(rec)
+        log(f"K5 {variant:15s} n_pad={n_pad} G={n_tgs} K={[k for _, k in ph]} steps={steps} "
+            f"placed={placed} deficit_left={rec['deficit']} equal=yes (top_idx all slots, "
+            f"bit_exact={'yes' if exact else 'no'}) kernel_ms={k_ms:.3f} "
+            f"per_step_ms={k_ms / max(steps, 1):.4f} plain_ms={p_ms:.1f} bytes={nbytes} ops={ops} "
+            f"bound_ms={b_ms:.6f} ({b_by}) torch_topk_ms={topk_ms:.4f} (K={k0}, one step's row)")
+        if variant == "c1m":
+            log(f"K5 c1m: {placed} of {C1M_PLACEMENTS} placements in {k_ms:.3f} ms of kernel "
+                f"({placed / k_ms * 1000:.0f} placements/s on the card)")
+            if placed != C1M_PLACEMENTS:
+                raise AssertionError(f"K5 c1m placed {placed} of {C1M_PLACEMENTS}")
+        if variant == "tight" and not (int(got[0][1].sum()) > 0
+                                       and placed > int(got[0][2][3].sum())):
+            raise AssertionError("K5 tight: the bulk left no deficit, or the tail placed none of it")
+    return worst, recs
+
+
+def replay_chunked(kernels, chunk, parity, spy):
+    """Every chunk launch of the chunked server run replayed: kernel vs
+    plain; then each chunked eval's encode through the exact float scan
+    kernel, and the tier's per-eval divergence from it (the sampled
+    parity at rate 1). Returns (per-launch (kernel ms, plain ms, bound
+    ms, bound by), worst |dscore|)."""
+    import numpy as np
+
+    from nomad_tpu_torch.tpu.convert import scan_inputs_to_torch, to_numpy, to_torch
+
+    rows, worst = [], 0.0
+    for i, (n_pad, s, c, x, d, k) in enumerate(spy.chunked):
+        if isinstance(c[0], np.ndarray) or np.isscalar(c[0]):
+            c = to_torch(c, DEVICE)  # an encode's carry, as run_chunked copies it
+        got = kernels.chunk_scan(n_pad, s, tuple(t.clone() for t in c), x,
+                                 None if d is None else d.clone(), chunk=k)
+        plain, p_ms = timed_wall(lambda: chunk.chunk_scan(n_pad, s, c, x, d, chunk=k))
+        div, diff, all_slots, _ = parity.check_chunk_scan(plain, got, f"chunk launch {i}")
+        if not all_slots:
+            raise AssertionError(f"chunk launch {i}: top_idx differs from plain")
+        worst = max(worst, diff)
+        k_ms = cuda_ms(lambda: kernels.chunk_scan(n_pad, s, tuple(t.clone() for t in c), x,
+                                                  None if d is None else d.clone(), chunk=k))
+        nbytes, ops = kernels.chunk_scan_work(s, c, x, k, got[2][3])
+        b_ms, b_by = bound(nbytes, ops)
+        rows.append((k_ms, p_ms, b_ms, b_by))
+    log(f"chunked server: {len(rows)} chunk launches replayed, kernel equal to plain on every "
+        f"step; mean kernel_ms={sum(r[0] for r in rows) / len(rows):.4f} mean plain_ms="
+        f"{sum(r[1] for r in rows) / len(rows):.2f} mean bound_ms="
+        f"{sum(r[2] for r in rows) / len(rows):.6f} ({rows[0][3]}) max |dscore| {worst!r}")
+    # run_chunked on the host clock, by section, with the 16 workers
+    # running: the encode's copies to the card, this spy's capture (by
+    # reference), the launch, the synchronizing copies back, the rest
+    # (the schedule and the FIFO expansion)
+    secs = {name: sorted(rec.get(name, 0.0) for _, _, rec in spy.chunk_evals)
+            for name in ("total", "h2d", "capture", "launch", "d2h")}
+    secs["rest"] = sorted(rec["total"] - sum(v for n, v in rec.items() if n != "total")
+                          for _, _, rec in spy.chunk_evals)
+    log("chunked server: run_chunked host ms per eval (median / max / sum over "
+        f"{len(spy.chunk_evals)} evals): " + "; ".join(
+            f"{name} {v[len(v) // 2]:.2f} / {v[-1]:.2f} / {sum(v):.1f}" for name, v in secs.items()))
+    divs, total = [], 0
+    for enc, chosen, _rec in spy.chunk_evals:
+        static, carry, xs = scan_inputs_to_torch(enc.static, enc.carry, enc.xs, DEVICE)
+        _, ys = kernels.place_scan(enc.n_pad, static, carry, xs)
+        ref = to_numpy(ys)[0][: enc.p]
+        divs.append(parity.tg_multiset_divergence(chosen[: enc.p], ref,
+                                                  np.asarray(enc.xs[0])[: enc.p]))
+        total += int(enc.p)
+    log(f"chunked tier vs the exact float scan kernel on every chunked eval's encode: "
+        f"{len(divs)} evals, {sum(divs)} of {total} placements on other nodes "
+        f"(rate {sum(divs) / max(total, 1):.4f}); per eval {json.dumps(divs)}")
+    return rows, worst
+
+
 def torch_equal(a, b) -> bool:
     import torch
 
@@ -470,24 +643,44 @@ class _Spy:
 
         from nomad_tpu_torch.utils import metrics
 
-        self.kernels, self.metrics = kernels, metrics
+        import threading
+
+        from nomad_tpu_torch.tpu import engine
+
+        self.kernels, self.metrics, self.engine_mod = kernels, metrics, engine
+        self.engine_cls = engine.TorchPlacementEngine
         self.counted, self.reasons = [], []
         self.batched, self.forced = [], []
+        # chunk launches: (n_pad, static, carry, xs, deficit, K) as given;
+        # chunked evals: (encode, expanded chosen, host ms of run_chunked
+        # by section: h2d, capture (this spy's clones), launch, d2h, total)
+        self.chunked, self.chunk_evals = [], []
+        self._tls = threading.local()
         spy = self
 
         class Reasons(logging.Handler):
             def emit(self, record):
                 msg = record.getMessage()
-                if "fallback" in msg or "to host" in msg:
+                if "fallback" in msg or "to host" in msg or "ineligible" in msg:
                     spy.reasons.append(msg)
 
         self.handler = Reasons(level=logging.DEBUG)
         self.logger = logging.getLogger("nomad_tpu.tpu.engine")
 
+    def _section(self, name, t0):
+        """Add the host ms since ``t0`` to section ``name`` of the
+        calling thread's run_chunked, if it is inside one."""
+        rec = getattr(self._tls, "rec", None)
+        if rec is not None:
+            rec[name] = rec.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
     def __enter__(self):
-        k = self.kernels
-        self.orig = (self.metrics.incr_counter, k.place_scan_batched, k.forced_eval)
-        orig_incr, orig_batched, orig_forced = self.orig
+        k, em = self.kernels, self.engine_mod
+        self.orig = (self.metrics.incr_counter, k.place_scan_batched, k.forced_eval,
+                     k.chunk_scan, self.engine_cls.run_chunked, em.scan_inputs_to_torch,
+                     em.to_numpy)
+        (orig_incr, orig_batched, orig_forced, orig_chunk, orig_run_chunked, orig_h2d,
+         orig_d2h) = self.orig
 
         def count(name, value=1.0):
             self.counted.append(name)
@@ -505,9 +698,53 @@ class _Spy:
                                      for part in (static, carry, xs)))
             return orig_forced(static, carry, xs)
 
+        def chunk_scan(n_pad, static, carry, xs, deficit=None, chunk=128):
+            t0 = time.perf_counter()
+            enc = getattr(self._tls, "enc", None)
+            if enc is not None and deficit is None:
+                # run_chunked's launch: static and xs are only read, and
+                # the carry is the encode's, copied afresh: keep references
+                # and the encode's numpy carry, and clone nothing
+                self.chunked.append((n_pad, static, enc.carry, xs, None, chunk))
+            else:
+                self.chunked.append((n_pad, *(tuple(t.clone() for t in part)
+                                              for part in (static, carry, xs)),
+                                     None if deficit is None else deficit.clone(), chunk))
+            self._section("capture", t0)
+            t0 = time.perf_counter()
+            out = orig_chunk(n_pad, static, carry, xs, deficit, chunk=chunk)
+            self._section("launch", t0)
+            return out
+
+        def h2d(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = orig_h2d(*args, **kwargs)
+            self._section("h2d", t0)
+            return out
+
+        def d2h(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = orig_d2h(*args, **kwargs)
+            self._section("d2h", t0)
+            return out
+
+        def run_chunked(engine, enc, *args, **kwargs):
+            rec = {}
+            self._tls.rec, self._tls.enc = rec, enc
+            t0 = time.perf_counter()
+            try:
+                out = orig_run_chunked(engine, enc, *args, **kwargs)
+            finally:
+                self._tls.rec = self._tls.enc = None
+            rec["total"] = (time.perf_counter() - t0) * 1e3
+            self.chunk_evals.append((enc, out[0].copy(), rec))
+            return out
+
         self.metrics.incr_counter = count
         # kernels.place_scan launches through kernels.place_scan_batched
-        k.place_scan_batched, k.forced_eval = batched, forced
+        k.place_scan_batched, k.forced_eval, k.chunk_scan = batched, forced, chunk_scan
+        self.engine_cls.run_chunked = run_chunked
+        em.scan_inputs_to_torch, em.to_numpy = h2d, d2h
         self.logger.addHandler(self.handler)
         self.level = self.logger.level
         self.logger.setLevel(logging.DEBUG)
@@ -517,7 +754,9 @@ class _Spy:
     def __exit__(self, *exc):
         self.launches = dict(self.kernels.LAUNCHES)
         k = self.kernels
-        self.metrics.incr_counter, k.place_scan_batched, k.forced_eval = self.orig
+        (self.metrics.incr_counter, k.place_scan_batched, k.forced_eval, k.chunk_scan,
+         self.engine_cls.run_chunked, self.engine_mod.scan_inputs_to_torch,
+         self.engine_mod.to_numpy) = self.orig
         self.logger.removeHandler(self.handler)
         self.logger.setLevel(self.level)
         return False
@@ -748,14 +987,19 @@ def c1m_mixed_jobs(pkg_mock, structs, total):
     return jobs
 
 
-def phase_server(kernels, deterministic: bool, seed: int):
+def phase_server(kernels, deterministic: bool, seed: int, chunked: bool = False):
     """The server slice at ServerConfig defaults (deterministic=False: the
-    float arm) or with deterministic=True (the int arm): 5,000 C1M nodes,
+    float arm) or with deterministic=True (the int arm), or, with
+    ``chunked``, at defaults but for scheduler_algorithm =
+    "tpu_binpack_chunked" (the chunked tier, K5): 5,000 C1M nodes,
     num_schedulers=0 plus 16 explicit Workers (as bench.py bench_system),
-    the C1M job mix cut to SERVER_PLACEMENTS. Returns the run's record,
-    the inputs of its first and last batched launch and those of its
-    forced-node launches (the float run's system job)."""
+    the C1M job mix cut to SERVER_PLACEMENTS. Returns the run's record
+    and the spy (the main path's launches and their inputs: the batched
+    launches, the forced-node launches of the float run's system job,
+    the chunk launches and chunked evals)."""
     import numpy as np
+
+    from nomad_tpu_torch.tpu.engine import TorchPlacementEngine
 
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.server.fsm import NODE_REGISTER
@@ -765,10 +1009,14 @@ def phase_server(kernels, deterministic: bool, seed: int):
     from nomad_tpu_torch.structs.funcs import allocs_fit
     from nomad_tpu_torch.utils import phases
 
-    arm = "int" if deterministic else "float"
+    arm = "chunked" if chunked else ("int" if deterministic else "float")
     rng = np.random.default_rng(seed)
-    server = Server(ServerConfig(num_schedulers=0, deterministic=deterministic,
-                                 device=DEVICE), name=f"smoke-{arm}")
+    server = Server(ServerConfig(
+        num_schedulers=0, deterministic=deterministic, device=DEVICE,
+        scheduler_algorithm="tpu_binpack_chunked" if chunked else "tpu_binpack"),
+        name=f"smoke-{arm}")
+    engine = TorchPlacementEngine.shared(DEVICE)
+    engine.reset_parity_samples()
     try:
         server.start()
         for i in range(N_NODES):
@@ -800,7 +1048,7 @@ def phase_server(kernels, deterministic: bool, seed: int):
             placed = state.count_allocs_desired_run()
             drained = server.drain_evals(60.0)
             shares = phases.wall_shares(t0, phases.now())
-            if not deterministic:
+            if not deterministic and not chunked:
                 # one system job after the mix: the forced-node kernel's
                 # float arm on the default path (every C1M node is an
                 # eligible dc1/linux node)
@@ -841,22 +1089,37 @@ def phase_server(kernels, deterministic: bool, seed: int):
             raise AssertionError(f"server {arm}: {len(over)} nodes overcommitted, e.g. {over[:3]}")
         unported = counted.count("nomad.tpu_engine.unported")
         fallback = counted.count("nomad.tpu_engine.fallback")
-        kernel = "place_scan" if deterministic else "place_scan_f32"
-        other = "place_scan_f32" if deterministic else "place_scan"
         mean_batch = stats["evals"] / max(stats["dispatches"], 1)
-        if unported or fallback or launches[kernel] < 1 or launches[other] or mean_batch <= 1.0:
-            raise AssertionError(
-                f"server {arm}: unported={unported} fallback={fallback} launches={launches} "
-                f"mean eval batch={mean_batch}")
         rec = {"arm": arm, "placements": placed, "jobs": len(jobs), "wall_s": wall_s,
                "placements_per_s": placed / wall_s, "launches": launches,
                "evals_handled": counted.count("nomad.tpu_engine.handled"),
                "unported": unported, "fallback": fallback, "mean_eval_batch": mean_batch,
                "batcher": stats, "dispatch_profile": profile, "phases_s": shares,
                "nodes_checked": len(state.nodes()), "system_job": sys_rec}
-        # the inputs of the first and the last batched launch, and of
-        # every forced-node launch
-        return rec, [spy.batched[0][0], spy.batched[-1][0]], spy.forced
+        if chunked:
+            # every C1M template is chunk-eligible in the float arm: each
+            # job's eval takes the chunk kernel, one launch per eval;
+            # OCC retries and the sampler take the exact float scan
+            dispatch = counted.count("nomad.tpu_engine.chunk_dispatch")
+            chunk_fallback = counted.count("nomad.tpu_engine.chunk_fallback")
+            rec.update(chunk_dispatch=dispatch, chunk_fallback=chunk_fallback,
+                       chunk_fallback_reasons=sorted({r for r in spy.reasons if "chunked" in r}),
+                       parity_sample_stats=engine.parity_sample_stats())
+            if (unported or fallback or chunk_fallback or dispatch < len(jobs)
+                    or launches["chunk_scan"] != dispatch or launches["place_scan"]):
+                raise AssertionError(
+                    f"server {arm}: unported={unported} fallback={fallback} "
+                    f"chunk_dispatch={dispatch} chunk_fallback={chunk_fallback} "
+                    f"({rec['chunk_fallback_reasons']}) launches={launches}")
+            return rec, spy
+        kernel = "place_scan" if deterministic else "place_scan_f32"
+        other = "place_scan_f32" if deterministic else "place_scan"
+        if (unported or fallback or launches[kernel] < 1 or launches[other]
+                or launches["chunk_scan"] or mean_batch <= 1.0):
+            raise AssertionError(
+                f"server {arm}: unported={unported} fallback={fallback} launches={launches} "
+                f"mean eval batch={mean_batch}")
+        return rec, spy
     finally:
         phases.disable()
         server.stop()
@@ -1067,7 +1330,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from nomad_tpu_torch.tpu import convert, engine, forced, kernels, parity, step
+    from nomad_tpu_torch.tpu import chunk, convert, engine, forced, kernels, parity, step
 
     t_start = time.perf_counter()
     card = gpu_line()
@@ -1092,6 +1355,8 @@ def main() -> int:
     phase_forced(kernels, convert, engine, forced)
     phase_has_pre(kernels, step, convert, engine)
     stamp("K4 and has_pre checks done")
+    worst_k5, k5_recs = phase_chunk_variants(kernels, chunk, convert, engine, parity)
+    stamp("K5 checks done")
 
     dev_records, captured, launches = phase_slice(kernels, args.seed)
     for rec in dev_records:
@@ -1109,8 +1374,8 @@ def main() -> int:
 
     servers = {}
     for deterministic in (False, True):
-        rec, launch_inputs, forced_inputs = phase_server(kernels, deterministic, args.seed)
-        servers[rec["arm"]] = (rec, launch_inputs, forced_inputs)
+        rec, spy = phase_server(kernels, deterministic, args.seed)
+        servers[rec["arm"]] = (rec, [spy.batched[-1][0]], spy.forced)
         log(f"server {rec['arm']}: {rec['placements']} placements of {rec['jobs']} jobs in "
             f"{rec['wall_s'] * 1000:.1f} ms ({rec['placements_per_s']:.1f} placements/s) on {card}; "
             f"launches {json.dumps(rec['launches'], sort_keys=True)}; evals handled "
@@ -1123,6 +1388,23 @@ def main() -> int:
         log(f"  dispatch_profile {json.dumps(rec['dispatch_profile'], sort_keys=True)}")
         log(f"  phases_s {json.dumps(rec['phases_s'], sort_keys=True)}")
         stamp(f"server {rec['arm']} done")
+
+    rec, chunk_spy = phase_server(kernels, False, args.seed, chunked=True)
+    log(f"server chunked: {rec['placements']} placements of {rec['jobs']} jobs in "
+        f"{rec['wall_s'] * 1000:.1f} ms ({rec['placements_per_s']:.1f} placements/s) on {card}; "
+        f"launches {json.dumps(rec['launches'], sort_keys=True)}; chunk_dispatch "
+        f"{rec['chunk_dispatch']}, chunk_fallback {rec['chunk_fallback']} "
+        f"(reasons: {rec['chunk_fallback_reasons']}), evals handled {rec['evals_handled']}, "
+        f"unported {rec['unported']}, fallback {rec['fallback']}; {rec['nodes_checked']} nodes, "
+        f"none overcommitted")
+    log(f"  parity_sample_stats {json.dumps(rec['parity_sample_stats'], sort_keys=True)}")
+    log(f"  batcher {json.dumps(rec['batcher'], sort_keys=True)}")
+    log(f"  phases_s {json.dumps(rec['phases_s'], sort_keys=True)}")
+    stamp("server chunked done")
+    k5_rows, k5_worst = replay_chunked(kernels, chunk, parity, chunk_spy)
+    worst_k5 = max(worst_k5, k5_worst)
+    servers["chunked"] = (rec, [], [])
+    stamp("chunked replays done")
 
     sys_rec, sys_spy = phase_system_server(kernels, args.seed)
     log(f"system slice (deterministic): {N_NODES} config-4 nodes, wall {sys_rec['wall_s']:.3f} s "
@@ -1151,6 +1433,7 @@ def main() -> int:
     # the main paths' own kernel inputs, replayed: kernel vs plain, times, bound
     rows = {name: [] for name in ("place_scan", "place_scan_f32", "place_scan_has_pre",
                                   "forced_eval", "forced_eval_f32")}
+    rows["chunk_scan"] = k5_rows
     for i, (n_pad, s, c, x) in enumerate(captured):
         k_out = run_kernel(kernels, n_pad, s, c, x)
         p_out, p_ms = timed_wall(lambda: run_plain(step, n_pad, s, c, x))
@@ -1163,6 +1446,8 @@ def main() -> int:
             f"aff={s[4].shape[0] > 0} evict={x[3].shape[1] > 0} equal=yes kernel_ms={k_ms:.3f} "
             f"plain_ms={p_ms:.1f} bytes={nbytes} ops={ops} bound_ms={b_ms:.6f} ({b_by})")
     for arm, (rec, launch_inputs, forced_inputs) in servers.items():
+        if arm == "chunked":
+            continue  # replayed above
         kernel = "place_scan" if arm == "int" else "place_scan_f32"
         # the last batched launch only (PRs 1-2 also replayed the first)
         for which, (sb, cb, xb) in (("last", launch_inputs[-1]),):
@@ -1198,6 +1483,7 @@ def main() -> int:
         "place_scan_has_pre": sys_rec["launches"]["place_scan_has_pre"],
         "forced_eval": sys_rec["launches"]["forced_eval"],
         "forced_eval_f32": servers["float"][0]["launches"]["forced_eval_f32"],
+        "chunk_scan": servers["chunked"][0]["launches"]["chunk_scan"],
     }
     replaces = {
         "place_scan": "nomad_tpu/tpu/engine.py:213",
@@ -1205,9 +1491,12 @@ def main() -> int:
         "place_scan_has_pre": "nomad_tpu/tpu/engine.py:383",
         "forced_eval": "nomad_tpu/tpu/engine.py:888",
         "forced_eval_f32": "nomad_tpu/tpu/engine.py:888",
+        "chunk_scan": "nomad_tpu/tpu/engine.py:3033",
     }
     errs = {"place_scan": worst, "place_scan_f32": worst_f, "place_scan_has_pre": 0,
-            "forced_eval": 0, "forced_eval_f32": 0}
+            "forced_eval": 0, "forced_eval_f32": 0, "chunk_scan": worst_k5}
+    sources = {"forced_eval": "forced_eval.cu", "forced_eval_f32": "forced_eval.cu",
+               "chunk_scan": "chunk_scan.cu"}
     entries = []
     for name, r in rows.items():
         if not r:
@@ -1215,8 +1504,7 @@ def main() -> int:
         entries.append({
             "name": name,
             "route": "cuda",
-            "source": ("nomad_tpu_torch/tpu/csrc/forced_eval.cu" if name.startswith("forced")
-                       else "nomad_tpu_torch/tpu/csrc/place_scan.cu"),
+            "source": "nomad_tpu_torch/tpu/csrc/" + sources.get(name, "place_scan.cu"),
             "replaces": replaces[name],
             "launches": main_launches[name],
             "max_abs_err": errs[name],

@@ -32,7 +32,12 @@ Port of ``nomad_tpu/tpu/batcher.py``: ``pad_encoded``,
     is placed on the host instead;
   * the bucket-padding copies of a batch have every task group
     pre-failed, so each of their steps is skipped;
-  * no device mesh (a later slice) and no chunked tier.
+  * no device mesh (a later slice).
+
+The chunked tier's evals do not come here: the engine runs them one by
+one through ``kernels.chunk_scan`` (``engine.run_chunked``), which
+re-asserts the tier's gate with ``assert_chunk_gate`` (copied from
+``nomad_tpu/tpu/batcher.py:60-77``).
 """
 from __future__ import annotations
 
@@ -60,6 +65,26 @@ def _pow2ceil(x: int) -> int:
     while p < x:
         p *= 2
     return p
+
+
+def assert_chunk_gate(enc: EncodedEval) -> None:
+    """Dispatch-side re-assertion of the chunked tier's eligibility gate
+    (``engine._chunk_eligible`` decides routing; this catches a bypass).
+
+    The chunk step has no eviction scoring and passes the preemption
+    carry through untouched, so a preempting or destructive eval reaching
+    the chunked scan would silently drop its evictions, and the deficit
+    carry would then re-ask for capacity the preemption was supposed to
+    free, over-placing on retry rounds. Such evals must take the exact
+    scan. Raises AssertionError (also under ``python -O``)."""
+    if enc.pre_allocs is not None:
+        raise AssertionError(
+            "chunked tier dispatched a preempting eval (pre_allocs present); "
+            "preemption must take the bit-parity scan")
+    if (np.asarray(enc.xs[2]) >= 0).any():
+        raise AssertionError(
+            "chunked tier dispatched an eval with eviction steps; "
+            "destructive updates must take the bit-parity scan")
 
 
 def pad_encoded(enc: EncodedEval, n_pad: int, g_pad: int, s_pad: int,

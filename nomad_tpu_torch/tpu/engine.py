@@ -31,17 +31,32 @@ eviction set in its ``evict`` column; the apply step writes them into
 The reference's gates stay as they are and count under
 ``nomad.tpu_engine.fallback`` (host placement).
 
+The chunked throughput tier (``scheduler_algorithm =
+"tpu_binpack_chunked"``): an eval that ``_chunk_eligible`` admits
+(float arm, dense, fresh: no preemption tables, evictions, reschedule
+penalties or forced nodes, full-height reserved) withdraws its batcher
+announcement and runs ``run_chunked``: ``kernels.chunk_scan`` (K5, the
+top-K chunk kernel, ``csrc/chunk_scan.cu``) places up to ``chunk_k``
+instances of one task group per step, and each task group's FIFO of
+picks expands back to per-placement arrays for the same apply path.
+With probability ``parity_sample_rate`` the eval is run again through
+the exact float scan and the per-TG divergence is tallied
+(``parity_sample_stats``). Every other eval takes the exact scan as
+under ``tpu_binpack``, counted as ``nomad.tpu_engine.chunk_fallback``.
+
 Unlike the JAX engine, a failed kernel build or launch is not caught:
 it raises out of the scheduler's ``process()`` (the server's worker then
 nacks the eval back to the broker); nothing is placed on the host
-instead. The chunked tier and parity sampling are later slices.
+instead. That holds for the chunk kernel and for the sampler's
+reference scan too.
 """
 from __future__ import annotations
 
 import logging
+import random as _random
 import threading
 import time as _time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -55,8 +70,11 @@ from ..structs.structs import (
     Allocation,
 )
 from ..utils.hostwork import HOST_WORK_SEM as _HOST_WORK_SEM
+from ..utils.lock_witness import witness_lock
 from . import kernels
+from .chunk import chunk_schedule
 from .convert import DeviceLike, resolve_device, scan_inputs_to_torch, to_numpy
+from .parity import tg_multiset_divergence
 
 # Partial OCC retries below device_min_placements still ride the device
 # when the batcher has already run a batch (see compute_placements) —
@@ -76,6 +94,12 @@ from .encode import (
 )
 
 logger = logging.getLogger("nomad_tpu.tpu.engine")
+
+# Deterministic sampler for the chunked tier's parity spot checks
+# (engine.py:63-68): tests reseed it to make the sampling decision
+# reproducible. The chunked tier only runs on float-mode encodes, so the
+# RNG never influences a deterministic-mode plan.
+_PARITY_SAMPLE_RNG = _random.Random(0xC47A)
 
 
 class EncodedEval:
@@ -309,6 +333,13 @@ class TorchPlacementEngine:
 
     def __init__(self, device: DeviceLike = "cuda") -> None:
         self.device = resolve_device(device)
+        # the chunked tier's sampled-parity tally (engine.py:1155-1166)
+        self._parity_lock = witness_lock("engine.TorchPlacementEngine._parity_lock")
+        self._parity_samples = {  # guarded-by: _parity_lock
+            "evals_sampled": 0,
+            "placements_checked": 0,
+            "placements_diverged": 0,
+        }
 
     @classmethod
     def shared(cls, device: DeviceLike = "cuda") -> "TorchPlacementEngine":
@@ -380,10 +411,30 @@ class TorchPlacementEngine:
                 return True
             self._pipeline_remember(sched, enc)
             t0 = _metrics.now()
+            # tpu_binpack_chunked: chunk-eligible evals take the top-K
+            # throughput scan; everything else (preempting, destructive,
+            # int-mode, penalized) takes the exact scan below as under
+            # tpu_binpack (engine.py:1487-1535)
+            use_chunked = False
+            if getattr(sched, "chunked_tier", False):
+                chunk_reason = self._chunk_eligible(enc)
+                use_chunked = chunk_reason is None
+                if not use_chunked:
+                    _metrics.incr_counter("nomad.tpu_engine.chunk_fallback")
+                    logger.debug("chunked tier ineligible (%s): %s",
+                                 wave_id[:8], chunk_reason)
+            if use_chunked and expected_held:
+                # withdraw BEFORE the chunked scan: a phantom expectation
+                # would hold concurrent gathers open for it
+                batcher.cancel_expected()
+                expected_held = False
             try:
                 with _phases.track("device_wait"), \
                         _tlc.pipeline_stage("dispatch", wave_id):
-                    if batcher is not None:
+                    if use_chunked:
+                        chosen, scores, pulls, skipped_steps, evict = self.run_chunked(
+                            enc, chunk_k=int(getattr(sched, "chunk_k", 128)))
+                    elif batcher is not None:
                         expected_held = False  # run() consumes the token
                         chosen, scores, pulls, skipped_steps, evict = batcher.run(
                             enc, expected=True)
@@ -399,6 +450,10 @@ class TorchPlacementEngine:
             if expected_held:
                 batcher.cancel_expected()
         _metrics.measure_since("nomad.tpu_engine.device_wait", t0)
+        if use_chunked:
+            _metrics.incr_counter("nomad.tpu_engine.chunk_dispatch")
+            self._maybe_sample_parity(
+                enc, chosen, float(getattr(sched, "parity_sample_rate", 0.0)))
         t0 = _metrics.now()
         with _HOST_WORK_SEM:
             t1 = _metrics.now()
@@ -432,6 +487,123 @@ class TorchPlacementEngine:
             _carry, ys = kernels.place_scan(enc.n_pad, static, carry, xs)
             out = to_numpy(ys)
         return out
+
+    # -- chunked throughput tier ---------------------------------------
+
+    @staticmethod
+    def _chunk_eligible(enc: "EncodedEval") -> Optional[str]:
+        """None when the encode may run on the chunked top-K tier; else
+        the reason it must take the exact scan (engine.py:1253-1274). The
+        chunk step models fresh, non-destructive, float-mode placements
+        only; in particular it has no eviction scoring, so preempting
+        evals are gated here and again at dispatch
+        (``batcher.assert_chunk_gate``)."""
+        if np.dtype(enc.dtype).kind != "f":
+            return "int mode"
+        if not enc.dense_ok:
+            return "not dense"
+        if enc.pre_allocs is not None:
+            return "preemption tables"
+        if enc.static[1].shape[0] != enc.n_pad:
+            return "folded reserved"
+        if enc.xs[1].shape[1] > 0 and bool((np.asarray(enc.xs[1]) >= 0).any()):
+            return "reschedule penalties"
+        if bool((np.asarray(enc.xs[2]) >= 0).any()):
+            return "eviction axis"
+        if enc.xs[9].ndim == 2 and enc.xs[9].shape[1] > 0:
+            return "forced nodes"
+        return None
+
+    def run_chunked(self, enc: "EncodedEval", chunk_k: int = 128,
+                    retry_rounds: int = 2):
+        """Run one chunk-eligible eval through the top-K chunk scan
+        (``kernels.chunk_scan``: on ``cuda`` the K5 kernel) and expand
+        the per-chunk outputs back to per-placement arrays of the exact
+        scan's result shape (chosen, scores, pulls, skipped, evict), so
+        both tiers share the apply path (engine.py:1283-1356).
+
+        Placements of one task group are interchangeable here (the gate
+        rejects every per-row feature), so each TG's rows fill in order
+        from its chunks' valid picks; rows left unfilled after the retry
+        rounds come back as chosen = -1 (failed placements, never
+        silently dropped)."""
+        from ..utils import phases as _phases
+        from .batcher import assert_chunk_gate
+
+        assert_chunk_gate(enc)
+        tg_idx_p = np.asarray(enc.xs[0])[: enc.p]
+        counts: Dict[int, int] = {}
+        for gi in tg_idx_p.tolist():
+            counts[int(gi)] = counts.get(int(gi), 0) + 1
+        counts_by_tg = list(counts.items())
+        chunk = int(max(1, min(chunk_k, enc.n_pad)))
+        steps_tg, want = chunk_schedule(counts_by_tg, chunk, retry_rounds=retry_rounds)
+        static, carry, xs = scan_inputs_to_torch(enc.static, enc.carry, (steps_tg, want),
+                                                 self.device)
+        with _phases.track("device"):
+            _carry, _deficit, (top_idx, top_scores, valid, _placed) = kernels.chunk_scan(
+                enc.n_pad, static, carry, xs, chunk=chunk)
+            top_idx, top_scores, valid = to_numpy((top_idx, top_scores, valid))
+
+        # per-TG FIFO of the picked (node, score) pairs, chunk order
+        picked: Dict[int, list] = {gi: [] for gi, _ in counts_by_tg}
+        for si in range(steps_tg.shape[0]):
+            vs = np.nonzero(valid[si])[0]
+            if vs.size:
+                picked[int(steps_tg[si])].append((top_idx[si, vs], top_scores[si, vs]))
+        p = enc.p
+        chosen = np.full(p, -1, np.int32)
+        scores = np.zeros(p, np.float32)
+        for gi, lst in picked.items():
+            if not lst:
+                continue
+            nodes_q = np.concatenate([n for n, _ in lst])
+            scores_q = np.concatenate([sc for _, sc in lst])
+            rows = np.nonzero(tg_idx_p == gi)[0]
+            take = min(rows.size, nodes_q.size)
+            chosen[rows[:take]] = nodes_q[:take]
+            scores[rows[:take]] = scores_q[:take]
+        # every chunk scores the full real node axis
+        pulls = np.full(p, int(enc.n_real), np.int32)
+        skipped = np.zeros(p, bool)
+        evict = np.zeros((p, 0), np.int32)
+        return chosen, scores, pulls, skipped, evict
+
+    def _maybe_sample_parity(self, enc: "EncodedEval", chosen, rate: float) -> None:
+        """Sampled-parity spot check of the chunked tier
+        (engine.py:1358-1394): with probability ``rate`` run the eval
+        again through the exact float scan and tally the per-TG
+        multiset divergence of the chosen nodes. Unlike the JAX engine,
+        a failure of the reference scan raises (a caught launch failure
+        would hide the kernel)."""
+        from ..utils import metrics as _metrics
+
+        if rate <= 0.0 or _PARITY_SAMPLE_RNG.random() >= rate:
+            return
+        ref_chosen = np.asarray(self.run_scan_single(enc)[0])[: enc.p]
+        tg_idx = np.asarray(enc.xs[0])[: enc.p]
+        diverged = tg_multiset_divergence(np.asarray(chosen)[: enc.p], ref_chosen, tg_idx)
+        with self._parity_lock:
+            self._parity_samples["evals_sampled"] += 1
+            self._parity_samples["placements_checked"] += int(enc.p)
+            self._parity_samples["placements_diverged"] += int(diverged)
+        _metrics.incr_counter("nomad.tpu_engine.parity_sampled")
+        if diverged:
+            _metrics.incr_counter("nomad.tpu_engine.parity_diverged", float(diverged))
+
+    def parity_sample_stats(self) -> Dict[str, float]:
+        """Snapshot of the chunked tier's sampled-parity tally, with the
+        derived divergence rate (engine.py:1396-1405)."""
+        with self._parity_lock:
+            out = dict(self._parity_samples)
+        checked = out["placements_checked"]
+        out["divergence_rate"] = out["placements_diverged"] / checked if checked else 0.0
+        return out
+
+    def reset_parity_samples(self) -> None:
+        with self._parity_lock:
+            for k in self._parity_samples:
+                self._parity_samples[k] = 0
 
     def run_forced(self, enc: "EncodedEval"):
         """Run one all-distinct forced-node eval through the scan-free
@@ -2048,3 +2220,78 @@ def example_forced_variant(n_nodes: int = 64, n_placements: int = 64,
     xs[5] = np.ones(n_placements, np.int32)
     xs[9] = rng.permutation(n_nodes)[:n_placements].astype(np.int32)[:, None]
     return n_pad, tuple(static), tuple(carry), tuple(xs)
+
+
+#: the chunked scan's input variants (``example_chunk_variant``)
+CHUNK_VARIANTS = ("open", "c1m", "spread_affinity", "distinct_hosts", "tight")
+
+
+def example_chunk_variant(variant: str, n_nodes: int = 64, n_tgs: int = 2,
+                          seed: int = 0):
+    """Float-arm inputs of the chunked scan (K5), from
+    ``example_scan_inputs``, for holding the kernel and its plain
+    version against the JAX ``_build_chunk_scan``:
+
+      open             every node feasible, no affinity axis (the r2
+                       crash shape of tests/test_chunk_scan.py), one
+                       targeted spread
+      c1m              bench.py ``c1m_inputs``: every node feasible, asks
+                       of 15 MHz / 30 MB for every task group (C1M's
+                       mock nodes tie exactly)
+      spread_affinity  the affinity axis with scores and presence, two
+                       targeted spreads, one value desired 0 (the -big
+                       clamp) on the first
+      distinct_hosts   job-level distinct_hosts on every task group, and
+                       task-group-level on none
+      tight            40 feasible nodes per task group, nodes that hold
+                       three allocs, no reservation: a chunk wider than
+                       40 places fewer than asked and the deficit drains
+                       through later steps
+
+    numpy only, seeded; returns (n_pad, static, carry); build the steps
+    with ``chunk.chunk_schedule``."""
+    from .intscore import pack_feat_planes
+
+    if variant not in CHUNK_VARIANTS:
+        raise ValueError(f"unknown chunk variant {variant!r}")
+    n_spreads = 2 if variant == "spread_affinity" else 1
+    n_pad, static, carry, _xs = example_scan_inputs(
+        n_nodes=n_nodes, n_tgs=n_tgs, n_placements=64, n_spreads=n_spreads,
+        dtype=np.float32, seed=seed)
+    static, carry = list(static), list(carry)
+    rng = np.random.default_rng(seed + 104729)
+    g = n_tgs
+    feas = np.zeros((g, n_pad), bool)
+    feas[:, :n_nodes] = True
+    static[3] = pack_feat_planes(feas)
+    if variant == "c1m":
+        asks = np.zeros_like(static[2])
+        asks[:, DIM_CPU] = 15
+        asks[:, DIM_MEM] = 30
+        static[2] = asks
+    elif variant == "spread_affinity":
+        aff_present = np.zeros((g, n_pad), bool)
+        aff_present[:, :n_nodes] = rng.random((g, n_nodes)) < 0.5
+        choices = np.array([-1.0, -1.0 / 3.0, 0.5, 1.0], np.float32)
+        static[4] = np.where(aff_present, rng.choice(choices, (g, n_pad)),
+                             0).astype(np.float32)
+        static[3] = pack_feat_planes(feas, aff_present)
+        static[10] = static[10].copy()
+        static[10][:, 0, 0] = 0.0
+    elif variant == "distinct_hosts":
+        static[6] = np.ones(g, bool)
+    elif variant == "tight":
+        feas[:] = False
+        for gi in range(g):
+            feas[gi, rng.choice(n_nodes, min(40, n_nodes), replace=False)] = True
+        static[3] = pack_feat_planes(feas)
+        totals = static[0].copy()
+        totals[:n_nodes, DIM_CPU] = 300.0
+        totals[:n_nodes, DIM_MEM] = 600.0
+        static[0] = totals
+        asks = static[2].copy()
+        asks[:, DIM_CPU] = 100.0
+        asks[:, DIM_MEM] = 100.0
+        static[2] = asks
+        static[1] = np.zeros_like(static[1])
+    return n_pad, tuple(static), tuple(carry)

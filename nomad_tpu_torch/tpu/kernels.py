@@ -11,6 +11,9 @@ greedy sweep, the second pass and isqrt/coord_q of
 ``nomad_tpu/tpu/preempt.py`` as device functions); a float32 one raises.
 ``forced_eval`` is the forced-node system kernel (``csrc/forced_eval.cu``,
 K4, ``engine.py:888``), counted as ``forced_eval`` / ``forced_eval_f32``.
+``chunk_scan`` is the chunked throughput tier's top-K scan
+(``csrc/chunk_scan.cu``, K5, ``engine.py:3033``, float arm only),
+counted as ``chunk_scan``.
 
 Each source under ``csrc/`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface (``_build/``,
@@ -20,7 +23,7 @@ and loaded with ``ctypes``; every pointer and the stream go across as
 
 The wrappers dispatch on the device of the tensors they are given: on
 the CPU they run the kernel's plain PyTorch version (``step.py``,
-``forced.py``), on CUDA they launch the kernel on the current stream or
+``forced.py``, ``chunk.py``), on CUDA they launch the kernel on the current stream or
 raise. Nothing falls back from CUDA to the CPU. ``LAUNCHES`` counts
 kernel launches, one per launch and nowhere else, so a run can show that
 its main path went through the kernel.
@@ -40,6 +43,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from . import chunk as _chunk
 from . import forced as _forced
 from . import step as _step
 from .preempt import C_MAX, GP_MAX
@@ -48,13 +52,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = {"place_scan": CSRC / "place_scan.cu", "forced_eval": CSRC / "forced_eval.cu"}
+SOURCES = {"place_scan": CSRC / "place_scan.cu", "forced_eval": CSRC / "forced_eval.cu",
+           "chunk_scan": CSRC / "chunk_scan.cu"}
 #: kernel name -> (source library, C entry point)
 KERNELS = {
     "place_scan": ("place_scan", "place_scan_launch"),
     "place_scan_f32": ("place_scan", "place_scan_f32_launch"),
     "forced_eval": ("forced_eval", "forced_eval_launch"),
     "forced_eval_f32": ("forced_eval", "forced_eval_f32_launch"),
+    "chunk_scan": ("chunk_scan", "chunk_scan_launch"),
 }
 
 #: kernel launches since the last reset, by kernel name; the int scan's
@@ -197,8 +203,24 @@ class ForcedArgs(ctypes.Structure):
                 + [(f, ctypes.c_void_p) for f in _FORCED_PTR_FIELDS])
 
 
+_CHUNK_INT_FIELDS = ("N", "D", "G", "S", "V", "T", "K", "has_aff")
+_CHUNK_PTR_FIELDS = (
+    "totals", "reserved", "asks", "feat", "aff_score", "desired", "dh_job", "dh_tg",
+    "spread_vids", "spread_desired", "spread_weights", "spread_active",
+    "sum_spread_weights", "n_real", "used", "tg_counts", "job_counts", "spread_counts",
+    "deficit", "tg_idx", "want", "top_idx", "top_scores", "valid", "placed", "keys",
+)
+
+
+class ChunkArgs(ctypes.Structure):
+    """Mirror of ``struct ChunkArgs`` in chunk_scan.cu."""
+
+    _fields_ = ([(f, ctypes.c_int) for f in _CHUNK_INT_FIELDS]
+                + [(f, ctypes.c_void_p) for f in _CHUNK_PTR_FIELDS])
+
+
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    args_t = {"place_scan": ScanArgs, "forced_eval": ForcedArgs}[name]
+    args_t = {"place_scan": ScanArgs, "forced_eval": ForcedArgs, "chunk_scan": ChunkArgs}[name]
     for source, entry in KERNELS.values():
         if source == name:
             fn = getattr(lib, entry)
@@ -575,4 +597,152 @@ def place_scan_batched_work(static_b, carry_b, xs_b, skipped_b=None,
             None if pre_stats_b is None else pre_stats_b[b])
         nbytes += nb
         ops += op
+    return nbytes, ops
+
+
+# -- chunk_scan (K5) ----------------------------------------------------------
+
+#: the kernel sorts the K winners in shared memory: at most 4,096 (32 KB)
+MAX_CHUNK_K = 4096
+
+
+def _check_chunk(n_pad, static, carry, xs, deficit, chunk) -> Dict[str, int]:
+    """Validate the arrays the chunk kernel reads and writes; return its
+    sizes."""
+    totals, reserved, asks = static[0], static[1], static[2]
+    if totals.dtype != F32:
+        raise NotImplementedError(
+            f"chunk_scan: the chunked tier runs in the float arm only (totals dtype "
+            f"{totals.dtype})")
+    n, d = totals.shape
+    if n != n_pad:
+        raise ValueError(f"chunk_scan: n_pad {n_pad} != node axis {n}")
+    if not 1 <= chunk <= min(n, MAX_CHUNK_K):
+        raise ValueError(f"chunk_scan: chunk size {chunk} outside [1, min(n_pad={n}, "
+                         f"{MAX_CHUNK_K})]")
+    if d < 2:
+        raise ValueError("chunk_scan: needs the cpu and memory dims")
+    g = asks.shape[0]
+    s, v = static[10].shape[1], static[10].shape[2]
+    ga = static[4].shape[0]
+    if ga not in (0, g) or v < 1:
+        raise ValueError("chunk_scan: affinity axis or value vocabulary malformed")
+    t = xs[0].shape[0]
+    specs = [
+        ("totals", totals, F32, (n, d)), ("reserved", reserved, F32, (n, d)),
+        ("asks", asks, F32, (g, d)), ("feat_packed", static[3], U8, (g, n)),
+        ("aff_score", static[4], F32, (ga, n)), ("desired_counts", static[5], I32, (g,)),
+        ("dh_job", static[6], BOOL, (g,)), ("dh_tg", static[7], BOOL, (g,)),
+        ("spread_vids", static[9], I32, (g, s, n)),
+        ("spread_desired", static[10], F32, (g, s, v)),
+        ("spread_weights", static[11], F32, (g, s)),
+        ("spread_active", static[13], BOOL, (g, s)),
+        ("sum_spread_weights", static[14], F32, (g,)), ("n_real", static[15], I32, ()),
+        ("used", carry[0], F32, (n, d)), ("tg_counts", carry[1], I32, (g, n)),
+        ("job_counts", carry[2], I32, (n,)), ("spread_counts", carry[3], F32, (g, s, v)),
+        ("tg_idx", xs[0], I32, (t,)), ("want", xs[1], I32, (t,)),
+    ]
+    if deficit is not None:
+        specs.append(("deficit", deficit, I32, (g,)))
+    for name, tensor, dtype, shape in specs:
+        _shape_check(name, tensor, dtype, shape, "chunk_scan")
+    return {"N": n, "D": d, "G": g, "S": s, "V": v, "T": t, "K": chunk,
+            "has_aff": int(ga > 0)}
+
+
+def _launch_chunk_scan(static, carry, xs, deficit, m):
+    dev = static[0].device
+    T, K, N = m["T"], m["K"], m["N"]
+    top_idx = torch.empty((T, K), dtype=I32, device=dev)
+    top_scores = torch.empty((T, K), dtype=F32, device=dev)
+    valid = torch.empty((T, K), dtype=BOOL, device=dev)
+    placed = torch.empty(T, dtype=I32, device=dev)
+    if T == 0:
+        return top_idx, top_scores, valid, placed
+    keys = torch.empty(N, dtype=I32, device=dev)  # uint32 keys
+    tensors = {
+        "totals": static[0], "reserved": static[1], "asks": static[2], "feat": static[3],
+        "aff_score": static[4], "desired": static[5], "dh_job": static[6],
+        "dh_tg": static[7], "spread_vids": static[9], "spread_desired": static[10],
+        "spread_weights": static[11], "spread_active": static[13],
+        "sum_spread_weights": static[14], "n_real": static[15],
+        "used": carry[0], "tg_counts": carry[1], "job_counts": carry[2],
+        "spread_counts": carry[3], "deficit": deficit, "tg_idx": xs[0], "want": xs[1],
+        "top_idx": top_idx, "top_scores": top_scores, "valid": valid, "placed": placed,
+        "keys": keys,
+    }
+    args = ChunkArgs(**{k: m[k] for k in _CHUNK_INT_FIELDS},
+                     **{k: tensors[k].data_ptr() for k in _CHUNK_PTR_FIELDS})
+    source, entry = KERNELS["chunk_scan"]
+    lib = _lib(source)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, entry)(ctypes.byref(args), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"chunk_scan launch failed: {lib.chunk_scan_error_string(err).decode()}")
+    with _count_lock:
+        LAUNCHES["chunk_scan"] += 1
+    return top_idx, top_scores, valid, placed
+
+
+def chunk_scan(n_pad: int, static, carry, xs, deficit=None, chunk: int = _chunk.CHUNK_K):
+    """K5: one eval's chunked top-K scan, the JAX ``chunk_scan`` contract
+    ``(n_pad, static, carry, xs, deficit=None) -> (carry, deficit,
+    (top_idx, top_scores, valid, placed))`` with ``xs = (tg_idx, want)``
+    and chunk size ``chunk`` (K, ``1 <= K <= min(n_pad, 4096)``). The
+    carry tensors and ``deficit`` (zeros when None) are updated in place
+    and returned, on the CPU as on CUDA; ``static`` is the float arm's.
+    With no steps nothing is launched."""
+    extra = () if deficit is None else (deficit,)
+    dev = _device_of((*static, *carry, *xs, *extra))
+    m = _check_chunk(n_pad, static, carry, xs, deficit, chunk)
+    if deficit is None:
+        deficit = torch.zeros(m["G"], dtype=I32, device=dev)
+    if dev.type == "cuda":
+        return carry, deficit, _launch_chunk_scan(static, carry, xs, deficit, m)
+    if dev.type != "cpu":
+        raise ValueError(f"chunk_scan: unsupported device {dev}")
+    new_carry, new_deficit, ys = _chunk.chunk_scan(n_pad, static, carry, xs, deficit, chunk)
+    for dst, src in zip(carry, new_carry):
+        dst.copy_(src)
+    deficit.copy_(new_deficit)
+    return carry, deficit, ys
+
+
+#: operations per node and step of the chunk kernel's score pass (fit,
+#: distinct_hosts, binpack with its two powf, anti-affinity, affinity, the
+#: key), per capacity dim, and per active spread of the task group
+CHUNK_NODE_OPS = 90
+CHUNK_DIM_OPS = 3
+CHUNK_SPREAD_OPS = 12
+
+
+def chunk_scan_work(static, carry, xs, chunk: int, placed=None) -> Tuple[int, int]:
+    """(bytes, operations) one chunked scan needs at these inputs. Bytes:
+    every array the kernel reads once (static, carry, deficit, the
+    steps) and every output written once (final carry and deficit,
+    ``[T, K]`` indices, scores and flags, ``[T]`` placed). Operations per
+    step: each node scored once (``CHUNK_NODE_OPS`` + ``CHUNK_DIM_OPS``
+    per dim + ``CHUNK_SPREAD_OPS`` per active spread), one compare per
+    node against the K-th largest score, K log2 K to order the winners,
+    and per node placed (``placed``, the run's output; none when None)
+    its carry adds. Feeds the ``bound_ms`` of chip_smoke.py."""
+    read = [*static[:8], static[9], static[10], static[11], static[13], static[14],
+            static[15], *carry[:4], *xs]
+    nbytes = sum(t.numel() * t.element_size() for t in read)
+    g = static[2].shape[0]
+    nbytes += 2 * 4 * g                                    # deficit in and out
+    nbytes += sum(t.numel() * t.element_size() for t in carry[:4])
+    t = xs[0].shape[0]
+    nbytes += t * chunk * (4 + 4 + 1) + t * 4
+    n, d = static[0].shape
+    tg = xs[0].cpu().to(torch.int64)
+    active = static[13].cpu().to(torch.int64).sum(dim=-1)  # [G]
+    spreads = int(active[tg].sum()) if t else 0
+    log2k = max(1, (chunk - 1).bit_length())
+    ops = n * (t * (CHUNK_NODE_OPS + CHUNK_DIM_OPS * d + 1) + CHUNK_SPREAD_OPS * spreads)
+    ops += t * chunk * log2k
+    if placed is not None:
+        ops += int(placed.sum()) * (d + 2 + static[9].shape[1])
     return nbytes, ops

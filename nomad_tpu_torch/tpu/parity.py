@@ -91,3 +91,45 @@ def check_float_scan(ref, got, tg_idx, what: str = "float scan") -> Tuple[int, f
             raise AssertionError(f"{what}: final carry entry {i} differs")
         exact = exact and np.array_equal(a, b)
     return div, diff, exact
+
+
+def check_chunk_scan(ref, got, what: str = "chunk scan") -> Tuple[int, float, bool, bool]:
+    """Hold a chunked scan's ``(carry, deficit, (top_idx, top_scores,
+    valid, placed))`` against a reference's (tensors or numpy arrays):
+    every step's set of chosen (valid) nodes equal (divergence 0),
+    ``valid``, ``placed``, the deficit, the integer carries and the
+    integer-valued float carries exact, the other float carries and the
+    scores of each chosen node within ``FLOAT_SCORE_TOL``. Returns
+    (divergence, max |dscore|, top_idx equal over all K slots?,
+    bit-exact?); raises AssertionError naming ``what`` on a breach."""
+    (rc, rd, ry), (gc, gd, gy) = ref, got
+    ri, rs, rv, rp = (_np(a) for a in ry)
+    gi, gs, gv, gp = (_np(a) for a in gy)
+    if ri.shape != gi.shape:
+        raise AssertionError(f"{what}: top_idx shape {gi.shape} != {ri.shape}")
+    div, diff = 0, 0.0
+    for t in range(ri.shape[0]):
+        r_nodes, g_nodes = ri[t][rv[t]], gi[t][gv[t]]
+        div += len(set(g_nodes.tolist()) - set(r_nodes.tolist()))
+        _, r_at, g_at = np.intersect1d(r_nodes, g_nodes, return_indices=True)
+        if r_at.size:
+            diff = max(diff, float(np.abs(rs[t][rv[t]][r_at].astype(np.float64)
+                                          - gs[t][gv[t]][g_at]).max()))
+    if div > FLOAT_DIVERGENCE_BOUND or diff > FLOAT_SCORE_TOL:
+        raise AssertionError(f"{what}: {div} chosen nodes diverged, max |dscore| {diff}")
+    for name, a, b in (("valid", rv, gv), ("placed", rp, gp), ("deficit", _np(rd), _np(gd))):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{what}: {name} differs")
+    exact = all(a.dtype == b.dtype and np.array_equal(a, b)
+                for a, b in ((ri, gi), (rs, gs)))
+    for i, (a, b) in enumerate(zip(rc, gc)):
+        a, b = _np(a), _np(b)
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{what}: final carry entry {i} dtype or shape differs")
+        if a.dtype.kind == "f" and a.size and not np.array_equal(a, np.round(a)):
+            if float(np.abs(a.astype(np.float64) - b).max()) > FLOAT_SCORE_TOL:
+                raise AssertionError(f"{what}: float carry entry {i} differs")
+        elif not np.array_equal(a, b):
+            raise AssertionError(f"{what}: final carry entry {i} differs")
+        exact = exact and np.array_equal(a, b)
+    return div, diff, bool(np.array_equal(ri, gi)), exact

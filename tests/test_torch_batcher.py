@@ -372,8 +372,14 @@ def test_concurrent_evals_share_device_dispatch(deterministic):
     from nomad_tpu_torch.server.server import Server, ServerConfig
     from nomad_tpu_torch.server.worker import Worker
 
+    # The gather window is the server's default (2,000 ms): the
+    # demand-aware gather then holds for every encode the workers have
+    # announced. A 25 ms window closes before a second worker's encode
+    # arrives when encodes finish more than 25 ms apart (a loaded host,
+    # the int arm's slower encode), and every launch then carries one
+    # eval.
     server = Server(ServerConfig(
-        num_schedulers=0, device_batch=8, device_batch_window_ms=25.0,
+        num_schedulers=0, device_batch=8, device_batch_window_ms=2000.0,
         device_min_placements=0, deterministic=deterministic, device="cpu",
     ))
     try:

@@ -162,3 +162,52 @@ def test_forced_kernel_equals_plain_and_scan(cuda, dtype, device_dims):
     assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, plain))
     _, scan = kernels.place_scan(n_pad, s, tuple(t.clone() for t in c), x)
     assert torch.equal(got[0].cpu(), scan[0].cpu()) and torch.equal(got[1].cpu(), scan[1].cpu())
+
+
+def _chunk_case(cuda, variant, n_nodes, k, counts, retry_rounds=2):
+    from nomad_tpu_torch.tpu import chunk
+    from nomad_tpu_torch.tpu.engine import example_chunk_variant
+
+    n_pad, st, ca = example_chunk_variant(variant, n_nodes=n_nodes, n_tgs=len(counts), seed=5)
+    xs = chunk.chunk_schedule(list(enumerate(counts)), k, retry_rounds=retry_rounds)
+    return n_pad, convert.scan_inputs_to_torch(st, ca, xs, cuda)
+
+
+@pytest.mark.parametrize("variant,n_nodes,k,counts", [
+    ("open", 700, 16, [90, 70]),
+    ("c1m", 2000, 1024, [3000, 2500]),
+    ("spread_affinity", 700, 128, [300, 250]),
+    ("distinct_hosts", 300, 64, [200, 200]),
+    ("tight", 900, 128, [400, 300]),
+])
+def test_chunk_kernel_equals_plain(cuda, variant, n_nodes, k, counts):
+    """K5 on the card against its plain version on the card: every step's
+    chosen set equal, integer outputs and carries exact, scores within
+    ``parity.FLOAT_SCORE_TOL``, top_idx equal over all K slots."""
+    from nomad_tpu_torch.tpu import chunk
+
+    n_pad, (s, c, x) = _chunk_case(cuda, variant, n_nodes, k, counts)
+    plain = chunk.chunk_scan(n_pad, s, c, x, chunk=k)
+    before = kernels.LAUNCHES["chunk_scan"]
+    got = kernels.chunk_scan(n_pad, s, tuple(t.clone() for t in c), x, chunk=k)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["chunk_scan"] == before + 1
+    parity.check_chunk_scan(plain, got, f"chunk {variant}")
+    assert torch.equal(plain[2][0].cpu(), got[2][0].cpu())
+
+
+def test_chunk_kernel_deficit_handoff(cuda):
+    """A bulk phase at K = 256, then a tail at K = 64 with retry rounds
+    fed the bulk's carry and deficit, kernel against plain."""
+    from nomad_tpu_torch.tpu import chunk
+
+    n_pad, (s, c, x) = _chunk_case(cuda, "tight", 1500, 256, [500, 400], retry_rounds=0)
+    tail = chunk.chunk_schedule([(0, 60), (1, 40)], 64, retry_rounds=4)
+    xt = convert.to_torch(tail, cuda)
+    pc, pd, py = chunk.chunk_scan(n_pad, s, c, x, chunk=256)
+    plain = chunk.chunk_scan(n_pad, s, pc, xt, pd, chunk=64)
+    kc, kd, ky = kernels.chunk_scan(n_pad, s, tuple(t.clone() for t in c), x, chunk=256)
+    parity.check_chunk_scan((pc, pd, py), (kc, kd, ky), "bulk")
+    got = kernels.chunk_scan(n_pad, s, kc, xt, kd, chunk=64)
+    parity.check_chunk_scan(plain, got, "tail")
+    assert int(got[1].sum()) > 0

@@ -165,6 +165,58 @@ def test_system_and_preempting_evals_run_with_jax_and_nomad_tpu_blocked():
     assert "SYSTEM-ISOLATED-OK" in out.stdout
 
 
+_BLOCKED_CHUNK_RUN = _BLOCKED_RUN.split("h = Harness(device=\"cpu\")")[0] + textwrap.dedent("""
+    from nomad_tpu_torch.tpu import kernels
+
+    seen = []
+    orig_chunk = kernels.chunk_scan
+
+    def chunk_scan(*args, **kwargs):
+        seen.append(kwargs.get("chunk"))
+        return orig_chunk(*args, **kwargs)
+
+    kernels.chunk_scan = chunk_scan
+    h = Harness(device="cpu")
+    h.state.scheduler_set_config(h.next_index(), SchedulerConfiguration(
+        scheduler_algorithm="tpu_binpack_chunked", parity_sample_rate=1.0))
+    for i in range(12):
+        n = mock.node()
+        n.id = "node-%d" % i
+        n.name = "node-%d" % i
+        h.state.upsert_node(h.next_index(), n)
+    job = mock.job()
+    job.task_groups[0].count = 9
+    job.task_groups[0].tasks[0].resources.networks = []
+    h.state.upsert_job(h.next_index(), job)
+    h.process("service", Evaluation(priority=50, type="service",
+              triggered_by="job-register", job_id=job.id, namespace=job.namespace),
+              deterministic=False)
+    placed = sum(len(v) for p in h.plans for v in p.node_allocation.values())
+    assert placed == 9, placed
+    assert seen, "the chunk scan never ran"
+    assert calls.count("nomad.tpu_engine.chunk_dispatch") == 1, calls
+    assert calls.count("nomad.tpu_engine.parity_sampled") == 1, calls
+    assert "nomad.tpu_engine.chunk_fallback" not in calls, calls
+    assert not any(m == "nomad_tpu" or m.startswith("nomad_tpu.") for m in sys.modules)
+    assert sys.modules.get("jax") is None
+    print("CHUNK-ISOLATED-OK")
+""")
+
+
+def test_chunked_eval_runs_with_jax_and_nomad_tpu_blocked():
+    """A float eval under tpu_binpack_chunked (the chunk scan, then the
+    sampled-parity reference scan at rate 1) through the port's Harness
+    on the CPU, in a process where importing jax or anything of
+    nomad_tpu fails."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_CHUNK_RUN.format(repo=str(REPO))],
+        capture_output=True, text=True, timeout=240, env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "CHUNK-ISOLATED-OK" in out.stdout
+
+
 def test_default_device_without_cuda_raises(monkeypatch):
     """Entry points default to CUDA; with none present they raise rather
     than place on the host."""
