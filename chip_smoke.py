@@ -63,6 +63,18 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    launches of the system slice that evicted on the most steps): kernel
    vs plain (int bit for bit, float within the bound), with the kernel's
    time, the plain version's time and the kernel's bound on this card;
+   every placement-scan launch of phases 3, 4, 6 and 11 runs at the
+   launch plan's cluster size (printed as cs=, with the time a step) and
+   again at a forced CS = 1, held bit for bit against it in both arms
+   (skipped, with the reason, where the plan allows no CS = 1: n_pad
+   33,024); K3's B = 8 batches also at half the plan's cluster size,
+   with the clusters the card holds at once by size; the has_pre
+   variants and the replays of phase 11 also print their section timing
+   (``kernels.place_scan_sections``: cycles a step in each part); after
+   phase 6, the K8 sweep: the scan's isqrt64 / coord_q and the spread
+   term's floor division through ``kernels.k8_sweep`` against
+   ``isqrt_t`` / ``coord_q_t`` / ``torch.div`` on the card, bit for bit,
+   over ``kernels.k8_sweep_inputs``' edge cases;
 12. the chunked tier (K5, after phase 6): the chunk kernel against its
    plain version on the card (every step's chosen set equal, integer
    outputs exact, scores within 1e-5, top_idx equal over all K slots)
@@ -166,8 +178,47 @@ def compare(kernel_out, plain_out, what: str) -> int:
     return int((ky[1].cpu() - py[1].cpu()).abs().max()) if ky[1].numel() else 0
 
 
-def run_kernel(kernels, n_pad, static, carry, xs):
-    return kernels.place_scan(n_pad, static, tuple(c.clone() for c in carry), xs)
+def run_kernel(kernels, n_pad, static, carry, xs, cs=None):
+    return kernels.place_scan(n_pad, static, tuple(c.clone() for c in carry), xs, cs=cs)
+
+
+def plan_cs(kernels, static, carry, xs, batched=False) -> int:
+    """The cluster size the launch plan picks for these inputs."""
+    if not batched:
+        static, carry, xs = (tuple(t.unsqueeze(0) for t in part) for part in (static, carry, xs))
+    return kernels.scan_plan(static, carry, xs).cs
+
+
+def hold_cs1(launch, ref, what):
+    """``launch(cs)`` at a forced CS = 1 held bit for bit (both arms)
+    against ``ref``, its output at the plan's CS; returns its ms, or None
+    where the plan allows no CS = 1 (the reason printed)."""
+    try:
+        out = launch(1)
+    except ValueError as e:
+        log(f"{what}: CS=1 not run: {e}")
+        return None
+    compare(out, ref, f"{what} at CS=1 against the plan's CS")
+    return cuda_ms(lambda: launch(1), reps=1)
+
+
+def fmt_ms(ms) -> str:
+    return "n/a" if ms is None else f"{ms:.3f}"
+
+
+def sections_line(kernels, sb, cb, xb) -> str:
+    """Section timing of one launch at the plan's CS: thread 0's clock64
+    cycles a step in each part of the step (``kernels.SECTIONS``), the
+    mean over the launch's CTAs, per step that ran, with its share."""
+    (_, ys), cycles = kernels.place_scan_sections(sb, tuple(t.clone() for t in cb), xb)
+    steps = max(int((~ys[3]).sum(dim=1).max()), 1)
+    per_cta = cycles.double().flatten(0, 1) / steps
+    per = per_cta.mean(dim=0).tolist()
+    lo, hi = per_cta.min(dim=0).values.tolist(), per_cta.max(dim=0).values.tolist()
+    total = sum(per)
+    return "cycles a step, mean [min-max over CTAs] " + " ".join(
+        f"{n}={v:.0f} [{a:.0f}-{b:.0f}] ({v / total * 100:.1f}%)"
+        for n, v, a, b in zip(kernels.SECTIONS, per, lo, hi))
 
 
 def run_plain(step, n_pad, static, carry, xs):
@@ -207,9 +258,12 @@ def phase_variants(kernels, step, convert, engine):
         p_out, p_ms = timed_wall(lambda: run_plain(step, n_pad, s, c, x))
         worst = max(worst, compare(k_out, p_out, f"variant {variant} n={n_nodes}"))
         k_ms = cuda_ms(lambda: run_kernel(kernels, n_pad, s, c, x))
+        cs1_ms = hold_cs1(lambda cs: run_kernel(kernels, n_pad, s, c, x, cs), k_out,
+                          f"variant {variant} n={n_nodes}")
         placed = int((k_out[1][0] >= 0).sum())
         log(f"variant {variant:18s} n_pad={n_pad} P={p} placed={placed} equal=yes "
-            f"kernel_ms={k_ms:.3f} plain_ms={p_ms:.1f}")
+            f"cs={plan_cs(kernels, s, c, x)} kernel_ms={k_ms:.3f} per_step_us={k_ms * 1e3 / p:.2f} "
+            f"cs1_ms={fmt_ms(cs1_ms)} plain_ms={p_ms:.1f}")
 
     # B = 3 evals in one launch against three single launches
     evals = [engine.example_scan_variant("all", n_nodes=N_NODES, n_tgs=3,
@@ -222,15 +276,18 @@ def phase_variants(kernels, step, convert, engine):
         singles.append(run_kernel(kernels, n_pad, s, c, x))
     stacked = [tuple(np.stack(col) for col in zip(*(e[k] for e in evals))) for k in (1, 2, 3)]
     sb, cb, xb = convert.scan_inputs_to_torch(*stacked, DEVICE)
-    carry_b, ys_b = kernels.place_scan_batched(sb, cb, xb)
+    carry_b, ys_b = kernels.place_scan_batched(sb, tuple(c.clone() for c in cb), xb)
     for b, (sc, sy) in enumerate(singles):
         worst = max(worst, compare(
             (tuple(t[b] for t in carry_b), tuple(y[b] for y in ys_b)), (sc, sy),
             f"batched eval {b}"))
     b_ms = cuda_ms(lambda: kernels.place_scan_batched(
         sb, tuple(c.clone() for c in cb), xb))
+    cs1_ms = hold_cs1(lambda cs: kernels.place_scan_batched(sb, tuple(c.clone() for c in cb), xb,
+                                                            cs=cs), (carry_b, ys_b), "batched B=3")
     log(f"batched B=3 n_pad={n_pad} P={P_SCAN_VARIANT} equal to 3 single launches: yes "
-        f"kernel_ms={b_ms:.3f}")
+        f"cs={plan_cs(kernels, sb, cb, xb, True)} kernel_ms={b_ms:.3f} "
+        f"per_step_us={b_ms * 1e3 / P_SCAN_VARIANT:.2f} cs1_ms={fmt_ms(cs1_ms)}")
     return worst
 
 
@@ -253,10 +310,14 @@ def phase_float_variants(kernels, step, convert, engine):
         div, diff, exact = parity.check_float_scan(p_out, k_out, x[0], f"float variant {variant}")
         worst = max(worst, diff)
         k_ms = cuda_ms(lambda: run_kernel(kernels, n_pad, s, c, x))
+        cs1_ms = hold_cs1(lambda cs: run_kernel(kernels, n_pad, s, c, x, cs), k_out,
+                          f"float variant {variant}")
         placed = int((k_out[1][0] >= 0).sum())
         log(f"float variant {variant:18s} n_pad={n_pad} P={P_SCAN_VARIANT} placed={placed} "
             f"divergence={div} max_abs_dscore={diff!r} bit_exact={'yes' if exact else 'no'} "
-            f"kernel_ms={k_ms:.3f} plain_ms={p_ms:.1f}")
+            f"cs={plan_cs(kernels, s, c, x)} kernel_ms={k_ms:.3f} "
+            f"per_step_us={k_ms * 1e3 / P_SCAN_VARIANT:.2f} cs1_ms={fmt_ms(cs1_ms)} "
+            f"plain_ms={p_ms:.1f}")
     return worst
 
 
@@ -290,11 +351,28 @@ def phase_batched(kernels, convert, engine):
                 worst = max(worst, parity.check_float_scan(
                     (sc, sy), got, xb[0][b], f"batched {arm} eval {b}")[1])
         b_ms = cuda_ms(lambda: kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb))
+
+        def launch(cs):
+            return kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb, cs=cs)
+
+        cs1_ms = hold_cs1(launch, (carry_b, ys_b), f"K3 {arm} B={BATCH_B}")
+        # the next cluster size down, held and timed beside the plan's
+        cs = plan_cs(kernels, sb, cb, xb, True)
+        half_ms = None
+        if cs > 1:
+            compare(launch(cs // 2), (carry_b, ys_b), f"K3 {arm} B={BATCH_B} at CS={cs // 2}")
+            half_ms = cuda_ms(lambda: launch(cs // 2))
         nbytes, ops = kernels.place_scan_batched_work(sb, cb, xb, ys_b[3])
         bound_ms = max(nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S) * 1e3
+        resident = {k: kernels.max_active_clusters(
+            k, kernels.scan_plan(sb, cb, xb, k).smem_bytes, arm == "int") for k in (16, 8, 4)}
+        log(f"K3 {arm} B={BATCH_B}: clusters resident at once by cluster size "
+            f"(cudaOccupancyMaxActiveClusters) {json.dumps(resident)}")
         log(f"K3 {arm} B={BATCH_B} n_pad={n_pad} P={P_SCAN_VARIANT}: equal to {BATCH_B} single "
-            f"launches (max |dscore| {worst!r}); batched_ms={b_ms:.3f} "
-            f"singles_sum_ms={sum(single_ms):.3f} singles_max_ms={max(single_ms):.3f} "
+            f"launches (max |dscore| {worst!r}); cs={cs} batched_ms={b_ms:.3f} "
+            f"per_step_us={b_ms * 1e3 / P_SCAN_VARIANT:.2f} half_cs_ms={fmt_ms(half_ms)} "
+            f"cs1_ms={fmt_ms(cs1_ms)} singles_sum_ms={sum(single_ms):.3f} "
+            f"singles_max_ms={max(single_ms):.3f} "
             f"ratio_to_slowest_single={b_ms / max(single_ms):.3f} bytes={nbytes} ops={ops} "
             f"bound_ms={bound_ms:.6f}")
 
@@ -359,13 +437,18 @@ def phase_has_pre(kernels, step, convert, engine):
         p_out, p_ms = timed_wall(lambda: step.place_scan(n_pad, s, c, x, stats))
         compare(k_out, p_out, f"has_pre variant {variant}")
         k_ms = cuda_ms(lambda: run_kernel(kernels, n_pad, s, c, x))
+        cs1_ms = hold_cs1(lambda cs: run_kernel(kernels, n_pad, s, c, x, cs), k_out,
+                          f"has_pre variant {variant}")
         nbytes, ops = kernels.place_scan_work(s, c, x, k_out[1][3], stats)
         evicting = int((k_out[1][4] >= 0).any(dim=1).sum())
         log(f"has_pre variant {variant:15s} n_pad={n_pad} P={p} C={st[20].shape[1]} "
             f"placed={int((k_out[1][0] >= 0).sum())} evicting_steps={evicting} equal=yes "
-            f"kernel_ms={k_ms:.3f} per_step_ms={k_ms / p:.4f} plain_ms={p_ms:.1f} "
+            f"cs={plan_cs(kernels, s, c, x)} kernel_ms={k_ms:.3f} per_step_ms={k_ms / p:.4f} "
+            f"cs1_ms={fmt_ms(cs1_ms)} plain_ms={p_ms:.1f} "
             f"greedy_rows={stats.get('greedy_rows', 0)} greedy_keys={stats.get('greedy_keys', 0)} "
             f"bytes={nbytes} ops={ops} bound_ms={max(nbytes / PEAK_BYTES_S, ops / PEAK_OPS_S) * 1e3:.6f}")
+        log(f"  has_pre variant {variant}: " + sections_line(
+            kernels, *(tuple(t.unsqueeze(0) for t in part) for part in (s, c, x))))
 
     def enc_of(variant, seed, c=None):
         n_pad, st, ca, xs = engine.example_scan_variant(
@@ -396,8 +479,37 @@ def phase_has_pre(kernels, step, convert, engine):
         if not torch_equal(ys_b[4][b][:, :cw], sy[4]) or not bool((ys_b[4][b][:, cw:] == -1).all()):
             raise AssertionError(f"has_pre B=3 eval {b}: evict differs from its single launch")
     b_ms = cuda_ms(lambda: kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb))
+    cs1_ms = hold_cs1(lambda cs: kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb,
+                                                            cs=cs), (carry_b, ys_b), "has_pre B=3")
     log(f"has_pre B=3 (C = 16, 0, 5) n_pad={e0.n_pad} P={P_VARIANT}: equal to 3 single "
-        f"launches: yes batched_ms={b_ms:.3f}")
+        f"launches: yes cs={plan_cs(kernels, sb, cb, xb, True)} batched_ms={b_ms:.3f} "
+        f"per_step_us={b_ms * 1e3 / P_VARIANT:.2f} cs1_ms={fmt_ms(cs1_ms)}")
+
+
+def phase_k8(kernels):
+    """The scan's exact integer device functions (isqrt64, coord_q,
+    floordiv_pos: double precision with an integer fix-up) against
+    preempt.isqrt_t / coord_q_t and torch's floor division on the card,
+    bit for bit, over ``kernels.k8_sweep_inputs``' edge cases."""
+    import torch
+
+    from nomad_tpu_torch.tpu import preempt
+
+    n, needed, res, num, den = (torch.from_numpy(a).to(DEVICE)
+                                for a in kernels.k8_sweep_inputs(0))
+    isq, cq, fq = kernels.k8_sweep(n, needed, res, num, den)
+    want_isq, want_cq = preempt.isqrt_t(n), preempt.coord_q_t(needed, res)
+    want_fq = torch.div(num, den, rounding_mode="floor")
+    for name, got, want in (("isqrt", isq, want_isq), ("coord_q", cq, want_cq),
+                            ("floordiv", fq, want_fq)):
+        if not torch.equal(got, want):
+            bad = (got != want).nonzero()[:5].flatten().tolist()
+            raise AssertionError(f"K8 {name} differs from plain at {bad}")
+    clipped = int((want_cq.abs() == preempt.CQ_CAP).sum())
+    log(f"K8 sweep: {n.numel()} square roots (k^2, k^2 - 1, k^2 + 2k near 0 and 2^31, "
+        f"2^62 - 1, random), {needed.numel()} Q16 coordinates ({int((want_cq < 0).sum())} "
+        f"negative, {clipped} clipped) and {num.numel()} floor divisions (numerators around "
+        f"+-2^53 and up to 2^62) equal to isqrt_t / coord_q_t / torch.div")
 
 
 C1M_PLACEMENTS = 1_000_000
@@ -686,9 +798,9 @@ class _Spy:
             self.counted.append(name)
             orig_incr(name, value)
 
-        def batched(static_b, carry_b, xs_b):
+        def batched(static_b, carry_b, xs_b, cs=None):
             inputs = tuple(tuple(t.clone() for t in part) for part in (static_b, carry_b, xs_b))
-            out = orig_batched(static_b, carry_b, xs_b)
+            out = orig_batched(static_b, carry_b, xs_b, cs=cs)
             # with the number of steps that evicted
             self.batched.append((inputs, int((out[1][4] >= 0).any(dim=-1).sum())))
             return out
@@ -1188,10 +1300,10 @@ def phase_slice(kernels, seed: int):
         counted.append(name)
         orig_incr(name, value)
 
-    def capture(n_pad, static, carry, xs):
+    def capture(n_pad, static, carry, xs, cs=None):
         captured.append((n_pad, tuple(t.clone() for t in static),
                          tuple(t.clone() for t in carry), tuple(t.clone() for t in xs)))
-        return orig_scan(n_pad, static, carry, xs)
+        return orig_scan(n_pad, static, carry, xs, cs=cs)
 
     records, snapshots = [], []
     kernels.reset_launch_counts()
@@ -1287,14 +1399,19 @@ def replay_batched(kernels, step, parity, sb, cb, xb, what, float_arm):
         else:
             worst = max(worst, compare(got, ref, f"{what} eval {b}"))
     k_ms = cuda_ms(lambda: kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb))
+    cs1_ms = hold_cs1(lambda cs: kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb,
+                                                            cs=cs), k_out, what)
     nbytes, ops = kernels.place_scan_batched_work(sb, cb, xb, k_out[1][3], stats_b)
     b_ms, b_by = bound(nbytes, ops)
     real = int((~k_out[1][3]).sum())
     evicting = int((k_out[1][4] >= 0).any(dim=-1).sum())
-    log(f"{what}: B={sb[0].shape[0]} n_pad={sb[0].shape[1]} P={xb[0].shape[1]} "
+    p = xb[0].shape[1]
+    log(f"{what}: B={sb[0].shape[0]} n_pad={sb[0].shape[1]} P={p} "
         f"C={sb[20].shape[2]} steps_run={real} evicting_steps={evicting} equal=yes "
-        f"kernel_ms={k_ms:.3f} plain_ms={p_ms:.1f} bytes={nbytes} ops={ops} "
-        f"bound_ms={b_ms:.6f} ({b_by})")
+        f"cs={plan_cs(kernels, sb, cb, xb, True)} kernel_ms={k_ms:.3f} "
+        f"per_step_us={k_ms * 1e3 / p:.2f} cs1_ms={fmt_ms(cs1_ms)} plain_ms={p_ms:.1f} "
+        f"bytes={nbytes} ops={ops} bound_ms={b_ms:.6f} ({b_by})")
+    log(f"  {what}: {sections_line(kernels, sb, cb, xb)}")
     return k_ms, p_ms, b_ms, b_by, worst
 
 
@@ -1354,7 +1471,8 @@ def main() -> int:
     stamp("scan variants done")
     phase_forced(kernels, convert, engine, forced)
     phase_has_pre(kernels, step, convert, engine)
-    stamp("K4 and has_pre checks done")
+    phase_k8(kernels)
+    stamp("K4, has_pre and K8 checks done")
     worst_k5, k5_recs = phase_chunk_variants(kernels, chunk, convert, engine, parity)
     stamp("K5 checks done")
 
@@ -1439,12 +1557,19 @@ def main() -> int:
         p_out, p_ms = timed_wall(lambda: run_plain(step, n_pad, s, c, x))
         worst = max(worst, compare(k_out, p_out, f"main-path eval {i}"))
         k_ms = cuda_ms(lambda: run_kernel(kernels, n_pad, s, c, x))
+        cs1_ms = hold_cs1(lambda cs: run_kernel(kernels, n_pad, s, c, x, cs), k_out,
+                          f"main-path eval {i}")
         nbytes, ops = kernels.place_scan_work(s, c, x, k_out[1][3])
         b_ms, b_by = bound(nbytes, ops)
         rows["place_scan"].append((k_ms, p_ms, b_ms, b_by))
-        log(f"main-path eval {i}: n_pad={n_pad} P={x[0].shape[0]} S={s[10].shape[1]} "
-            f"aff={s[4].shape[0] > 0} evict={x[3].shape[1] > 0} equal=yes kernel_ms={k_ms:.3f} "
-            f"plain_ms={p_ms:.1f} bytes={nbytes} ops={ops} bound_ms={b_ms:.6f} ({b_by})")
+        p = x[0].shape[0]
+        log(f"main-path eval {i}: n_pad={n_pad} P={p} S={s[10].shape[1]} "
+            f"aff={s[4].shape[0] > 0} evict={x[3].shape[1] > 0} equal=yes "
+            f"cs={plan_cs(kernels, s, c, x)} kernel_ms={k_ms:.3f} per_step_us={k_ms * 1e3 / p:.2f} "
+            f"cs1_ms={fmt_ms(cs1_ms)} plain_ms={p_ms:.1f} bytes={nbytes} ops={ops} "
+            f"bound_ms={b_ms:.6f} ({b_by})")
+        log(f"  main-path eval {i}: " + sections_line(
+            kernels, *(tuple(t.unsqueeze(0) for t in part) for part in (s, c, x))))
     for arm, (rec, launch_inputs, forced_inputs) in servers.items():
         if arm == "chunked":
             continue  # replayed above

@@ -2,15 +2,17 @@
 // forced-node kernel (forced_eval.cu): the Q-format constants of the int
 // spec (nomad_tpu/tpu/intscore.py), the score terms both kernels compute
 // for a node, and the exact integer helpers of device-side preemption
-// (nomad_tpu/tpu/preempt.py). One definition keeps the two kernels bit
-// for bit equal on the same input, in both arms.
+// (nomad_tpu/tpu/preempt.py), the greedy and the second pass as half-warp
+// functions. One definition keeps the two kernels bit for bit equal on
+// the same input, in both arms.
 //
 // Int arm hold points: floor division of possibly negative int64
-// (floordiv; C++ '/' truncates), arithmetic '>>' of negative int64, the
-// exact 31-round integer square root (a sqrt of a double is not exact up
-// to 2**62). Float arm: every operation rounds on its own (__f*_rn, which
-// nvcc never contracts into FMA), in the JAX program's order; pow(10, x)
-// is powf, the function torch.pow calls on the card.
+// (floordiv; C++ '/' truncates), arithmetic '>>' of negative int64, an
+// exact integer square root and Q16 quotient (from double precision,
+// each with a complete integer fix-up). Float arm: every operation rounds
+// on its own (__f*_rn, which nvcc never contracts into FMA), in the JAX
+// program's order; pow(10, x) is powf, the function torch.pow calls on
+// the card.
 #pragma once
 
 #include <cstdint>
@@ -39,6 +41,26 @@ __device__ __forceinline__ long long floordiv(long long a, long long b) {
   long long q = a / b;
   long long r = a % b;
   if (r != 0 && ((r < 0) != (b < 0))) --q;
+  return q;
+}
+
+// floor(a / b) for b > 0. Where a and b are exact in a double the
+// correctly rounded double quotient is within one of the floor and the
+// remainder fixes it up; elsewhere the int64 division. Held against
+// torch's floor division on the card by k8_sweep (place_scan.cu).
+__device__ __forceinline__ long long floordiv_pos(long long a, long long b) {
+  constexpr long long kExact = 1LL << 53;
+  if (a <= -kExact || a >= kExact || b >= kExact) return floordiv(a, b);
+  long long q = (long long)floor(__ddiv_rn(__ll2double_rn(a), __ll2double_rn(b)));
+  long long r = a - q * b;
+  while (r < 0) {
+    --q;
+    r += b;
+  }
+  while (r >= b) {
+    ++q;
+    r -= b;
+  }
   return q;
 }
 
@@ -88,94 +110,105 @@ __device__ __forceinline__ float anti_f32(bool present, int tgc, float desired_f
 
 // -- device-side preemption (preempt.py:171-271; K8, K6, K7) ---------------
 
-// K8: floor square root of 0 <= n < 2**62 in 31 restoring rounds
+// K8: floor square root of 0 <= n < 2**62. The double square root is
+// within one of it (n rounds to 53 bits, the root is correctly rounded);
+// the integer fix-up makes it exact. Held against isqrt_t on the card by
+// k8_sweep (place_scan.cu).
 __device__ __forceinline__ long long isqrt64(long long n) {
-  long long x = 0, r = n;
-  for (int shift = 60; shift >= 0; shift -= 2) {
-    const long long bit = 1LL << shift;
-    const long long t = x + bit;
-    if (r >= t) {
-      r -= t;
-      x = (x >> 1) + bit;
-    } else {
-      x >>= 1;
-    }
-  }
+  long long x = (long long)__dsqrt_rn(__ll2double_rn(n));
+  while (x * x > n) --x;
+  while ((x + 1) * (x + 1) <= n) ++x;  // (2**31 + 1)**2 < 2**63
   return x;
 }
 
 // K8: Q16 coordinate floor((needed - res) * 2**16 / needed), clipped;
 // |needed - res| <= 2**29 where needed > 0 (the magnitude gate), so the
-// product cannot overflow (a left shift of a negative value would be
-// undefined in C++17)
+// numerator is exact in a double and the product cannot overflow (a left
+// shift of a negative value would be undefined in C++17). The double
+// quotient is within one of the floor; the remainder fixes it up.
 __device__ __forceinline__ long long coord_q(long long needed, long long res) {
   if (needed <= 0) return 0;
-  long long q = floordiv((needed - res) * kCqOne, needed);
+  const long long num = (needed - res) * kCqOne;
+  long long q = (long long)floor(__ddiv_rn(__ll2double_rn(num), __ll2double_rn(needed)));
+  long long r = num - q * needed;
+  while (r < 0) {
+    --q;
+    r += needed;
+  }
+  while (r >= needed) {
+    ++q;
+    r -= needed;
+  }
   return q < -kCqCap ? -kCqCap : (q > kCqCap ? kCqCap : q);
 }
 
-__device__ __forceinline__ long long dist_q(const long long needed[3], const int32_t* res4) {
+__device__ __forceinline__ long long dist_q(const long long needed[3], const long long res[3]) {
   long long s = 0;
   for (int d = 0; d < 3; ++d) {
-    const long long c = coord_q(needed[d], (long long)res4[d]);
+    const long long c = coord_q(needed[d], res[d]);
     s += c * c;
   }
   return isqrt64(s);
 }
 
-// The candidate slots of one node row, C <= kCMax.
-struct PreRow {
-  int C;
-  const int32_t* res;    // [C,4]
-  const int32_t* prio;   // [C]
-  const long long* pen;  // [C] Q16 max_parallel penalty
-  uint32_t alive;        // bit c: eligible and not yet evicted
-  long long remaining[3];
+// One candidate slot of a node row, held by one lane of a half-warp:
+// lane c holds slot c (lanes past the row's C slots hold a dead slot).
+struct PreSlot {
+  bool alive;      // eligible and not yet evicted
+  int prio;
+  long long pen;   // Q16 max_parallel penalty
+  long long res[3];
 };
 
-// Whether evicting every alive slot of the row would meet the ask: the
-// greedy takes a subset of them, so without it met stays false.
-__device__ __forceinline__ bool can_meet(const long long ask[3], const PreRow& row) {
-  long long most[3] = {row.remaining[0], row.remaining[1], row.remaining[2]};
-  for (int c = 0; c < row.C; ++c)
-    if ((row.alive >> c) & 1u)
-      for (int d = 0; d < 3; ++d) most[d] += row.res[c * 4 + d];
-  return most[0] >= ask[0] && most[1] >= ask[1] && most[2] >= ask[2];
+// Reductions over the 16 lanes of a half-warp; mask names those lanes.
+__device__ __forceinline__ long long half_sum(long long v, unsigned mask) {
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o, 16);
+  return v;
 }
 
-// K6: the greedy sweep of one row. Sets sel_ord[c] (the round that took
-// slot c, or -1) when sel_ord is not null; returns met. Each round takes
-// the first slot of least key among the alive slots of the lowest
-// priority; the sweep stops once the ask is met or no slot is alive (the
-// later rounds of the JAX sweep take nothing then). keys counts the keys
-// computed.
-__device__ __forceinline__ bool greedy_row(const long long ask[3], const PreRow& row,
-                                           int8_t* sel_ord, int* keys) {
+__device__ __forceinline__ int half_min(int v, unsigned mask) {
+  for (int o = 8; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(mask, v, o, 16));
+  return v;
+}
+
+// K6: the greedy sweep of one row over a half-warp. Returns met (the same
+// on every lane) and sets *sel to the round that took this lane's slot,
+// or -1. First whether evicting every alive slot would meet the ask (the
+// greedy takes a subset of them, so otherwise met stays false). Each round
+// takes the first slot of least key among the alive slots of the lowest
+// priority: one key per lane, then (key, lane) reduced over the lanes; the
+// sweep stops once the ask is met or no slot is alive (the later rounds of
+// the JAX sweep take nothing then).
+__device__ __forceinline__ bool greedy_half(const long long ask[3], const long long rem[3],
+                                            const PreSlot& s, int C, unsigned mask, int* sel) {
+  const int lane = threadIdx.x & 15;
+  *sel = -1;
+  bool can = true;
+  for (int d = 0; d < 3; ++d) can = can && rem[d] + half_sum(s.alive ? s.res[d] : 0, mask) >= ask[d];
+  if (!can) return false;
   long long needed[3] = {ask[0], ask[1], ask[2]};
-  long long avail[3] = {row.remaining[0], row.remaining[1], row.remaining[2]};
-  uint32_t alive = row.alive;
-  if (sel_ord)
-    for (int c = 0; c < row.C; ++c) sel_ord[c] = -1;
-  for (int t = 0; t < row.C && alive; ++t) {
-    int pmin = 2147483647;
-    for (int c = 0; c < row.C; ++c)
-      if (((alive >> c) & 1u) && row.prio[c] < pmin) pmin = row.prio[c];
-    long long best = kBig;
-    int best_c = -1;
-    for (int c = 0; c < row.C; ++c) {
-      if (!((alive >> c) & 1u) || row.prio[c] != pmin) continue;
-      const long long key = dist_q(needed, row.res + c * 4) + row.pen[c];
-      if (keys) ++*keys;
-      if (key < best) {
-        best = key;
-        best_c = c;
+  long long avail[3] = {rem[0], rem[1], rem[2]};
+  bool alive = s.alive;
+  for (int t = 0; t < C; ++t) {
+    if (!(__ballot_sync(mask, alive) & mask)) break;
+    const int pmin = half_min(alive ? s.prio : 2147483647, mask);
+    long long key = (alive && s.prio == pmin) ? dist_q(needed, s.res) + s.pen : kBig;
+    int who = lane;
+    for (int o = 8; o > 0; o >>= 1) {
+      const long long k2 = __shfl_xor_sync(mask, key, o, 16);
+      const int w2 = __shfl_xor_sync(mask, who, o, 16);
+      if (k2 < key || (k2 == key && w2 < who)) {
+        key = k2;
+        who = w2;
       }
     }
-    alive &= ~(1u << best_c);
-    if (sel_ord) sel_ord[best_c] = (int8_t)t;
+    if (lane == who) {
+      alive = false;
+      *sel = t;
+    }
     bool met = true;
     for (int d = 0; d < 3; ++d) {
-      const long long r = row.res[best_c * 4 + d];
+      const long long r = __shfl_sync(mask, s.res[d], who, 16);
       avail[d] += r;
       needed[d] -= r;
       met = met && avail[d] >= ask[d];
@@ -185,39 +218,36 @@ __device__ __forceinline__ bool greedy_row(const long long ask[3], const PreRow&
   return false;
 }
 
-// K7: rank the greedy set by distance to the fresh ask, descending, ties
-// in greedy order; keep the shortest rank prefix whose resources plus the
-// row's remaining meet the ask. rank[c] is set for the selected slots;
-// returns the kept slots as a bit mask.
-__device__ __forceinline__ uint32_t second_pass_row(const long long ask[3], const PreRow& row,
-                                                    const int8_t* sel_ord, int* rank) {
-  long long d2[kCMax];
-  for (int c = 0; c < row.C; ++c) d2[c] = sel_ord[c] >= 0 ? dist_q(ask, row.res + c * 4) : 0;
-  for (int c = 0; c < row.C; ++c) {
-    rank[c] = 2147483647;
-    if (sel_ord[c] < 0) continue;
-    int r = 0;
-    for (int o = 0; o < row.C; ++o)
-      if (sel_ord[o] >= 0 && (d2[o] > d2[c] || (d2[o] == d2[c] && sel_ord[o] < sel_ord[c]))) ++r;
-    rank[c] = r;
+// K7 over a half-warp: rank the greedy set by distance to the fresh ask,
+// descending, ties in greedy order; keep the shortest rank prefix whose
+// resources plus the row's remaining meet the ask (all of the set if none
+// does). Returns whether this lane's slot is kept; *rank is its rank
+// (INT32_MAX where the greedy did not take it).
+__device__ __forceinline__ bool second_pass_half(const long long ask[3], const long long rem[3],
+                                                 const PreSlot& s, int sel, unsigned mask,
+                                                 int* rank) {
+  const bool selected = sel >= 0;
+  const long long d2 = selected ? dist_q(ask, s.res) : 0;
+  int r = 0;
+  for (int o = 0; o < 16; ++o) {
+    const long long d2o = __shfl_sync(mask, d2, o, 16);
+    const int so = __shfl_sync(mask, sel, o, 16);
+    if (so >= 0 && (d2o > d2 || (d2o == d2 && so < sel))) ++r;
   }
-  // walk the ranks in order until the prefix meets the ask
-  long long avail[3] = {row.remaining[0], row.remaining[1], row.remaining[2]};
-  uint32_t keep = 0;
-  for (int r = 0; r < row.C; ++r) {
-    int c = -1;
-    for (int o = 0; o < row.C; ++o)
-      if (sel_ord[o] >= 0 && rank[o] == r) c = o;
-    if (c < 0) break;
-    keep |= 1u << c;
-    bool met = true;
+  if (!selected) r = 2147483647;
+  long long cum[3] = {0, 0, 0};
+  for (int o = 0; o < 16; ++o) {
+    const int ro = __shfl_sync(mask, r, o, 16);
     for (int d = 0; d < 3; ++d) {
-      avail[d] += row.res[c * 4 + d];
-      met = met && avail[d] >= ask[d];
+      const long long v = __shfl_sync(mask, s.res[d], o, 16);
+      if (ro != 2147483647 && ro <= r) cum[d] += v;
     }
-    if (met) break;
   }
-  return keep;
+  const bool met = rem[0] + cum[0] >= ask[0] && rem[1] + cum[1] >= ask[1] &&
+                   rem[2] + cum[2] >= ask[2];
+  const int first_met = half_min(selected && met ? r : 2147483647, mask);
+  *rank = r;
+  return selected && r <= first_met;
 }
 
 }  // namespace nomad

@@ -3,7 +3,9 @@
 ``place_scan`` is the placement scan (``csrc/place_scan.cu``): it
 replaces the JAX package's ``_make_step`` / ``_build_place_scan`` /
 ``_build_batched_scan`` (``nomad_tpu/tpu/engine.py:213``, ``:869``,
-``:1000``). The dtype of ``totals`` picks the arm: int32 launches the
+``:1000``), one thread-block cluster per eval whose CTAs split the node
+axis; ``launch_plan`` picks the cluster size and lays out each CTA's
+shared memory. The dtype of ``totals`` picks the arm: int32 launches the
 exact-integer kernel (counted as ``place_scan``), float32 the float
 kernel (counted as ``place_scan_f32``). An int32 eval with a candidate
 axis (C > 0) runs the scan's preemption branch (K1 ``has_pre``, with the
@@ -38,6 +40,7 @@ import shutil
 import subprocess
 import threading
 import time
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -160,11 +163,183 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-# -- place_scan ---------------------------------------------------------------
+# -- place_scan: the launch plan ---------------------------------------------
+
+#: SMs of an H100; the largest cluster; the shared memory a CTA can use;
+#: the part of it held back for the kernel's static shared memory (the
+#: launch refuses a kernel that needs more); the bytes of one spread's
+#: statistics; the least nodes a CTA gets when the plan picks the cluster
+#: size (``csrc/place_scan.cu`` has the same numbers)
+SMS = 132
+MAX_CLUSTER = 16
+SMEM_PER_CTA = 232_448
+STATIC_SMEM_RESERVE = 8_192
+STAT_BYTES = 32
+MIN_NODES_PER_CTA = 128
+#: the regions of a CTA's dynamic shared memory, in ``Region`` order:
+#: per CTA (shared memory only: the step's scores and flags of the
+#: slice, the per-spread statistics, the greedy's row list, the failed
+#: flags, each task group's Q45 reciprocal of its desired count, the
+#: greedy's round per slot of each row, kept for the commit),
+#: replicas of the small state every node reads (shared memory or a
+#: per-CTA global arena), then staged copies (shared memory, or the tensor
+#: itself where there is no room): the task groups' inputs, and the slice
+#: of each per-node array, carried first
+PER_CTA = ("score", "flags", "stat", "rows", "failed", "q_d", "sel_ord")
+REPLICAS = ("spread_counts", "spread_entry", "dp_counts")
+STAGED = ("asks", "desired", "dh_job", "dh_tg", "spread_weights", "spread_active",
+          "spread_has_targets", "spread_desired", "dp_applies", "dp_limit",
+          "used", "job_counts", "tg_counts", "e_base", "totals", "reserved", "feat",
+          "e_ask", "spread_vids", "dp_vids", "aff_score")
+REGIONS = PER_CTA + REPLICAS + STAGED
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """How one launch of the scan splits each eval's node axis: ``cs``
+    CTAs (a cluster) per eval, CTA r owning nodes ``slices[r]`` (``per``
+    a CTA), and where each region of a CTA lives: ``shared`` maps a
+    region to its byte offset in dynamic shared memory (``smem_bytes`` in
+    all), ``arena`` a replica to its offset in the per-CTA global arena
+    (``arena_bytes`` a CTA); a staged region in neither is read and
+    written in its tensor."""
+
+    cs: int
+    per: int
+    slices: Tuple[Tuple[int, int], ...]
+    smem_bytes: int
+    arena_bytes: int
+    region_bytes: Dict[str, int]
+    shared: Dict[str, int]
+    arena: Dict[str, int]
+
+    @property
+    def in_global(self) -> Tuple[str, ...]:
+        """The regions that did not fit in shared memory."""
+        return tuple(r for r in REGIONS if r not in self.shared)
+
+    def soff(self) -> List[int]:
+        """The kernel's ``soff``: an offset in shared memory, else -1 - the
+        arena offset of a replica, else -1 (the tensor itself)."""
+        return [self.shared[r] if r in self.shared
+                else -1 - self.arena[r] if r in self.arena else -1 for r in REGIONS]
+
+
+def launch_plan(B: int, N: int, D: int, G: int, S: int, V: int, DP: int, V2: int,
+                C: int = 0, int_arm: bool = True, has_reserved: bool = False,
+                has_aff: bool = False, cs: Optional[int] = None,
+                max_cs: int = MAX_CLUSTER) -> ScanPlan:
+    """The launch plan of a scan of B evals over N nodes. Without ``cs``,
+    the largest power of two up to ``max_cs`` with B x CS <= 132 SMs and
+    at least ``MIN_NODES_PER_CTA`` nodes a CTA, raised where a CTA's
+    scores, flags and greedy rows would not fit its shared memory; a given
+    ``cs`` (tests, chip_smoke.py) is taken as it is. Each CTA owns the
+    contiguous slice ``[r * per, (r + 1) * per)`` cut at N (empty past
+    it). Regions are laid out in ``REGIONS`` order, each 16-byte aligned:
+    the per-CTA ones must fit (else ValueError), a replica that does not
+    goes to the global arena, a staged array stays in its tensor. The
+    outputs of the scan do not depend on the plan."""
+    budget = SMEM_PER_CTA - STATIC_SMEM_RESERVE
+    es = 4
+    ceil = lambda a, b: -(-a // b)  # noqa: E731
+
+    def sizes(per: int) -> Dict[str, int]:
+        return {
+            "score": per * (8 if int_arm else 4), "flags": per, "stat": S * STAT_BYTES,
+            "rows": per * 4 if C else 0, "failed": G, "q_d": G * 8,
+            "sel_ord": per * 16 if C else 0,
+            "spread_counts": G * S * V * es, "spread_entry": G * S * V, "dp_counts": DP * V2 * 4,
+            "asks": G * D * es, "desired": G * 4, "dh_job": G, "dh_tg": G,
+            "spread_weights": G * S * es, "spread_active": G * S, "spread_has_targets": G * S,
+            "spread_desired": G * S * V * es, "dp_applies": G * DP, "dp_limit": DP * 4,
+            "used": per * D * es, "job_counts": per * 4, "tg_counts": G * per * 4,
+            "e_base": per * 8 if int_arm else 0, "totals": per * D * es,
+            "reserved": per * D * es if has_reserved else 0, "feat": G * per,
+            "e_ask": G * per * 8 if int_arm else 0, "spread_vids": G * S * per * 4,
+            "dp_vids": DP * per * 4, "aff_score": G * per * es if has_aff else 0,
+        }
+
+    def per_cta(cs_: int) -> int:
+        sz = sizes(ceil(N, cs_))
+        return sum(_align16(sz[r]) for r in PER_CTA)
+
+    if cs is None:
+        cs = 1
+        while (cs * 2 <= max_cs and B * cs * 2 <= SMS
+               and ceil(N, cs * 2) >= MIN_NODES_PER_CTA):
+            cs *= 2
+        while cs < max_cs and per_cta(cs) > budget:
+            cs *= 2
+    elif cs not in (1, 2, 4, 8, 16) or cs > max_cs:
+        raise ValueError(f"place_scan: cluster size {cs} is not a power of two up to {max_cs}")
+    per = ceil(N, cs)
+    sz = sizes(per)
+    shared: Dict[str, int] = {}
+    arena: Dict[str, int] = {}
+    cursor = arena_cursor = 0
+    for r in PER_CTA:
+        shared[r] = cursor
+        cursor += _align16(sz[r])
+    if cursor > budget:
+        raise ValueError(
+            f"place_scan: at CS={cs} a CTA's {per} nodes need {cursor} bytes of shared memory "
+            f"for their scores, flags and greedy rows (the plan has {budget}); take a larger CS")
+    for r in REPLICAS + STAGED:
+        if cursor + _align16(sz[r]) <= budget:
+            shared[r] = cursor
+            cursor += _align16(sz[r])
+        elif r in REPLICAS:
+            arena[r] = arena_cursor
+            arena_cursor += _align16(sz[r])
+    slices = tuple((min(r * per, N), min(r * per + per, N)) for r in range(cs))
+    return ScanPlan(cs=cs, per=per, slices=slices, smem_bytes=cursor, arena_bytes=arena_cursor,
+                    region_bytes=sz, shared=shared, arena=arena)
+
+
+#: cudaOccupancyMaxActiveClusters by (cluster size, shared bytes, arm, card)
+_max_clusters_seen: Dict[Tuple[int, int, int, int], int] = {}
+_occupancy_lock = threading.Lock()
+
+
+def _plan(m: Dict[str, int], int_arm: bool, cs: Optional[int], dev: torch.device) -> ScanPlan:
+    """``launch_plan`` of a checked launch. On the card the plan's
+    clusters must be resident together: where
+    ``cudaOccupancyMaxActiveClusters`` reads fewer than the batch's B
+    clusters (0 for a cluster of 16 the card cannot co-schedule at all),
+    the plan drops to the next cluster size down; a forced ``cs`` raises
+    only where it reads 0."""
+    dims = dict(B=m["B"], N=m["N"], D=m["D"], G=m["G"], S=m["S"], V=m["V"], DP=m["DP"],
+                V2=m["V2"], C=m["C"], int_arm=int_arm, has_reserved=bool(m["has_reserved"]),
+                has_aff=bool(m["has_aff"]))
+    plan = launch_plan(**dims, cs=cs)
+    if dev.type != "cuda":
+        return plan
+    if cs is not None:
+        if max_active_clusters(plan.cs, plan.smem_bytes, int_arm, dev) < 1:
+            raise RuntimeError(f"place_scan: the card cannot co-schedule a cluster of {cs} "
+                               f"CTAs with {plan.smem_bytes} bytes of shared memory each")
+        return plan
+    while plan.cs > 1 and max_active_clusters(plan.cs, plan.smem_bytes, int_arm,
+                                              dev) < m["B"]:
+        plan = launch_plan(**dims, max_cs=plan.cs // 2)
+    return plan
+
+
+def scan_plan(static_b, carry_b, xs_b, cs: Optional[int] = None) -> ScanPlan:
+    """The plan ``place_scan_batched`` launches these arrays with."""
+    m = _check_batched(static_b, carry_b, xs_b)
+    return _plan(m, static_b[0].dtype == I32, cs, static_b[0].device)
+
+
+# -- place_scan: arguments and launch -----------------------------------------
 
 _INT_FIELDS = ("B", "N", "D", "G", "S", "V", "K", "DP", "V2", "P",
                "has_reserved", "has_aff", "has_evict", "has_forced",
-               "has_pre", "C", "GP")
+               "has_pre", "C", "GP", "CS", "per", "smem_bytes", "arena_bytes")
 _PTR_FIELDS = (
     "totals", "reserved", "asks", "feat", "aff_score", "desired", "dh_job",
     "dh_tg", "spread_vids", "spread_desired", "spread_weights",
@@ -175,16 +350,22 @@ _PTR_FIELDS = (
     "tg_idx", "penalty_idx", "evict_node", "evict_res", "evict_tg",
     "limit_p", "sum_sw_p", "ev_factor", "rev_factor", "forced_node",
     "chosen", "scores", "pulls", "skipped",
-    "scr_final", "scr_flags",
     "pre_res", "pre_prio", "pre_elig", "pre_mp", "pre_gid", "pre_evf",
-    "pre_alive", "pre_remaining", "pre_counts", "evict_out",
+    "pre_alive", "pre_remaining", "pre_counts", "evict_out", "arena", "sections",
 )
+#: the parts of a step that ``place_scan_sections`` times (``kSections``):
+#: the step's head (its skip or its eviction), the per-spread statistics,
+#: pass 1 (with the greedy), the counts' block scan, the cluster exchange
+#: of the counts with the totals, pass 2 with its block reduction, the
+#: cluster exchange of the selection with the winner, the commit
+SECTIONS = ("head", "stats", "pass1", "scan", "exchange1", "pass2", "exchange2", "commit")
 
 
 class ScanArgs(ctypes.Structure):
     """Mirror of ``struct ScanArgs`` in place_scan.cu."""
 
     _fields_ = ([(f, ctypes.c_int) for f in _INT_FIELDS]
+                + [("soff", ctypes.c_int * len(REGIONS))]
                 + [(f, ctypes.c_void_p) for f in _PTR_FIELDS])
 
 
@@ -226,6 +407,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             fn = getattr(lib, entry)
             fn.argtypes = [ctypes.POINTER(args_t), ctypes.c_void_p]
             fn.restype = ctypes.c_int
+    if name == "place_scan":
+        lib.place_scan_max_clusters.argtypes = [ctypes.c_int] * 3
+        lib.place_scan_max_clusters.restype = ctypes.c_int
+        lib.k8_sweep_launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
+                                        + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                                        + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
+        lib.k8_sweep_launch.restype = ctypes.c_int
     getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
     getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
     size = getattr(lib, f"{name}_args_size")
@@ -238,8 +426,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 I32, I64, U8, BOOL, F32 = torch.int32, torch.int64, torch.uint8, torch.bool, torch.float32
-# per-spread statistics live in dynamic shared memory, 32 bytes each,
-# within the 48 KB a launch gets without an opt-in attribute
+# per-spread statistics live in a CTA's shared memory, 32 bytes each
 _MAX_SPREADS = 1024
 
 
@@ -340,20 +527,23 @@ def _check_batched(static_b, carry_b, xs_b) -> Dict[str, int]:
     return m
 
 
-def _launch_place_scan(static_b, carry_b, xs_b):
+def _launch_place_scan(static_b, carry_b, xs_b, cs: Optional[int] = None, sections=None):
     m = _check_batched(static_b, carry_b, xs_b)
     dev = static_b[0].device
-    B, N, P = m["B"], m["N"], m["P"]
+    B, P = m["B"], m["P"]
     float_arm = static_b[0].dtype == F32
+    plan = _plan(m, not float_arm, cs, dev)
     score_t = F32 if float_arm else I64
     chosen = torch.empty((B, P), dtype=I32, device=dev)
     scores = torch.empty((B, P), dtype=score_t, device=dev)
     pulls = torch.empty((B, P), dtype=I32, device=dev)
     skipped = torch.empty((B, P), dtype=BOOL, device=dev)
-    scr_final = torch.empty((B, N), dtype=score_t, device=dev)
-    scr_flags = torch.empty((B, N), dtype=U8, device=dev)
     # the kernel writes the rank of each evicted slot and nothing else
     evict = torch.full((B, P, m["C"]), -1, dtype=I32, device=dev)
+    arena = torch.empty(B * plan.cs * plan.arena_bytes, dtype=U8, device=dev)
+    pre_res = static_b[20]
+    if pre_res.data_ptr() % 16:
+        pre_res = pre_res.clone()  # the kernel loads a slot's four dims as one int4
     tensors = {
         "totals": static_b[0], "reserved": static_b[1], "asks": static_b[2],
         "feat": static_b[3], "aff_score": static_b[4], "desired": static_b[5],
@@ -370,14 +560,17 @@ def _launch_place_scan(static_b, carry_b, xs_b):
         "sum_sw_p": xs_b[6], "ev_factor": xs_b[7], "rev_factor": xs_b[8],
         "forced_node": xs_b[9],
         "chosen": chosen, "scores": scores, "pulls": pulls, "skipped": skipped,
-        "scr_final": scr_final, "scr_flags": scr_flags,
-        "pre_res": static_b[20], "pre_prio": static_b[21], "pre_elig": static_b[22],
+        "pre_res": pre_res, "pre_prio": static_b[21], "pre_elig": static_b[22],
         "pre_mp": static_b[23], "pre_gid": static_b[24], "pre_evf": static_b[25],
         "pre_alive": carry_b[9], "pre_remaining": carry_b[10], "pre_counts": carry_b[11],
-        "evict_out": evict,
+        "evict_out": evict, "arena": arena,
     }
+    ptrs = {k: tensors[k].data_ptr() for k in tensors}
+    ptrs["sections"] = 0 if sections is None else sections.data_ptr()
+    m.update(CS=plan.cs, per=plan.per, smem_bytes=plan.smem_bytes, arena_bytes=plan.arena_bytes)
     args = ScanArgs(**{k: m[k] for k in _INT_FIELDS},
-                    **{k: tensors[k].data_ptr() for k in _PTR_FIELDS})
+                    soff=(ctypes.c_int * len(REGIONS))(*plan.soff()),
+                    **{k: ptrs[k] for k in _PTR_FIELDS})
     name = "place_scan_f32" if float_arm else "place_scan"
     source, entry = KERNELS[name]
     lib = _lib(source)
@@ -401,17 +594,21 @@ def _device_of(arrays) -> torch.device:
     return devs.pop()
 
 
-def place_scan_batched(static_b, carry_b, xs_b):
+def place_scan_batched(static_b, carry_b, xs_b, cs: Optional[int] = None):
     """K3: B evals of equal padded shapes in one launch, every array with
     a leading batch axis. The carry tensors are updated in place and
     returned with the stacked outputs ``(chosen, scores, pulls, skipped,
-    evict)``, each ``[B, P, ...]``. On the CPU each eval runs through the
-    plain version in turn and its final carry is written back."""
+    evict)``, each ``[B, P, ...]``. ``cs`` forces the launch plan's
+    cluster size (tests, chip_smoke.py); the outputs do not depend on it.
+    On the CPU each eval runs through the plain version in turn and its
+    final carry is written back (a given ``cs`` is checked by the plan)."""
     dev = _device_of((*static_b, *carry_b, *xs_b))
     if dev.type == "cuda":
-        return _launch_place_scan(static_b, carry_b, xs_b)
+        return _launch_place_scan(static_b, carry_b, xs_b, cs)
     if dev.type != "cpu":
         raise ValueError(f"place_scan: unsupported device {dev}")
+    if cs is not None:
+        scan_plan(static_b, carry_b, xs_b, cs)
     outs = []
     for b in range(static_b[0].shape[0]):
         new_carry, ys = _step.place_scan(
@@ -423,17 +620,131 @@ def place_scan_batched(static_b, carry_b, xs_b):
     return carry_b, tuple(torch.stack(col) for col in zip(*outs))
 
 
-def place_scan(n_pad: int, static, carry, xs):
+def place_scan(n_pad: int, static, carry, xs, cs: Optional[int] = None):
     """K1+K2: one eval's scan, the JAX ``place_scan`` contract
     ``(n_pad, static, carry, xs) -> (carry, (chosen, scores, pulls,
     skipped, evict))``. The carry tensors are updated in place and
-    returned (on the CPU as on CUDA)."""
+    returned (on the CPU as on CUDA); ``cs`` as in
+    ``place_scan_batched``."""
     if static[0].shape[0] != n_pad:
         raise ValueError(f"place_scan: n_pad {n_pad} != node axis {static[0].shape[0]}")
-    _, ys = place_scan_batched(
-        tuple(t.unsqueeze(0) for t in static), tuple(t.unsqueeze(0) for t in carry),
-        tuple(t.unsqueeze(0) for t in xs))
+    batched = (tuple(t.unsqueeze(0) for t in static), tuple(t.unsqueeze(0) for t in carry),
+               tuple(t.unsqueeze(0) for t in xs))
+    if cs is None:
+        _, ys = place_scan_batched(*batched)
+    else:
+        _, ys = place_scan_batched(*batched, cs=cs)
     return carry, tuple(y[0] for y in ys)
+
+
+def place_scan_sections(static_b, carry_b, xs_b, cs: Optional[int] = None):
+    """A ``place_scan_batched`` launch on the card with section timing:
+    returns its ``(carry, ys)`` and the clock64 cycles thread 0 of each
+    CTA spent in each part of the steps (``SECTIONS``), ``[B, CS,
+    len(SECTIONS)]`` int64. A diagnostic: the launch is counted like any
+    other."""
+    dev = _device_of((*static_b, *carry_b, *xs_b))
+    if dev.type != "cuda":
+        raise ValueError("place_scan_sections: times the kernel on the card only")
+    plan = scan_plan(static_b, carry_b, xs_b, cs)
+    cycles = torch.zeros((static_b[0].shape[0], plan.cs, len(SECTIONS)), dtype=I64, device=dev)
+    return _launch_place_scan(static_b, carry_b, xs_b, plan.cs, cycles), cycles
+
+
+def max_active_clusters(cs: int, smem_bytes: int, int_arm: bool, device=None) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the scan kernel's arm at this
+    cluster size and dynamic shared memory on the card (0: none)."""
+    dev = torch.device("cuda" if device is None else device)
+    key = (cs, smem_bytes, int(not int_arm), dev.index or 0)
+    with _occupancy_lock:
+        n = _max_clusters_seen.get(key)
+    if n is None:
+        lib = _lib("place_scan")
+        with torch.cuda.device(dev):
+            n = lib.place_scan_max_clusters(cs, smem_bytes, int(not int_arm))
+        with _occupancy_lock:
+            _max_clusters_seen[key] = n
+    return n
+
+
+def k8_sweep_inputs(seed: int = 0, n_random: int = 1 << 20):
+    """Int64 numpy inputs for ``k8_sweep``: square roots at k**2, k**2 - 1
+    and k**2 + 2k for k near 0 and near 2**31 and at random k, 2**62 - 1
+    and random values below 2**62; Q16 coordinates with needed <= 0,
+    exact quotients, negative numerators (res above needed), numerators
+    clipped at -2**30 and at +2**30 (res below 0), and random pairs inside
+    the magnitude gate (|needed|, |res| <= 2**28); floor divisions by a
+    positive divisor with numerators of both signs around +-2**53 (the
+    double quotient's edge), exact and inexact quotients, and random
+    pairs up to 2**62. Returns (n, needed, res, num, den)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    top = 1 << 31
+    ks = np.concatenate([np.arange(0, 4096), np.arange(top - 4096, top),
+                         rng.integers(1, top, n_random // 8)]).astype(np.int64)
+    sq = ks * ks
+    n = np.concatenate([sq, sq[ks > 0] - 1, sq + 2 * ks,
+                        np.array([(1 << 62) - 1, (1 << 62) - 2, 0, 1, 2, 3], dtype=np.int64),
+                        (1 << 62) - np.arange(1, 4096, dtype=np.int64),
+                        rng.integers(0, 1 << 62, n_random, dtype=np.int64)])
+    n = n[(n >= 0) & (n < (1 << 62))]
+    cap = 1 << 28
+    small = np.array([1, 2, 3, 7, 1000, cap - 1, cap], dtype=np.int64)
+    needed = [np.array([0, -5, -cap], dtype=np.int64).repeat(3), np.repeat(small, 6)]
+    res = [np.tile(np.array([0, 5, cap], dtype=np.int64), 3),
+           np.concatenate([np.array([0, 1, v - 1, v, v + 1, cap]) for v in small])]
+    # exact quotients (needed divides the numerator), then random pairs
+    # with numerators of both signs, clipped ones among them
+    q = rng.integers(1, 1 << 12, n_random // 8)
+    res.append(q * 16)
+    needed.append(q * 16 + q * rng.integers(1, 16, q.size))
+    needed.append(rng.integers(1, cap + 1, n_random, dtype=np.int64))
+    res.append(rng.integers(-cap, cap + 1, n_random, dtype=np.int64))
+    needed.append(rng.integers(1, 64, n_random // 8, dtype=np.int64))
+    res.append(rng.integers(-cap, cap + 1, n_random // 8, dtype=np.int64))
+    # floor division: numerators around the 2**53 edge and random ones,
+    # divisors from 1 up, some of them dividing exactly
+    edge = 1 << 53
+    near = np.concatenate([np.arange(edge - 64, edge + 64), np.arange(-edge - 64, -edge + 64)])
+    den = [np.tile(np.array([1, 2, 3, 7, 100, (1 << 40) + 1], dtype=np.int64), near.size)]
+    num = [np.repeat(near.astype(np.int64), 6)]
+    d = rng.integers(1, 1 << 40, n_random, dtype=np.int64)
+    den += [d, d]
+    num += [rng.integers(-(1 << 62), 1 << 62, n_random, dtype=np.int64),
+            d * rng.integers(-(1 << 20), 1 << 20, n_random, dtype=np.int64)]
+    d = rng.integers(1, 1 << 20, n_random, dtype=np.int64)
+    den.append(d)
+    num.append(rng.integers(-(1 << 52), 1 << 52, n_random, dtype=np.int64))
+    return (n, np.concatenate(needed), np.concatenate(res), np.concatenate(num),
+            np.concatenate(den))
+
+
+def k8_sweep(n: torch.Tensor, needed: torch.Tensor, res: torch.Tensor, num: torch.Tensor,
+             den: torch.Tensor):
+    """The scan's exact integer device functions (``csrc/common.cuh``
+    ``isqrt64``, ``coord_q``, ``floordiv_pos``) elementwise on the card:
+    ``(isqrt(n), coord_q(needed, res), floor(num / den))`` of int64 CUDA
+    tensors (den > 0), for holding them against ``preempt.isqrt_t`` /
+    ``coord_q_t`` and ``torch.div(..., rounding_mode="floor")``. A test
+    entry, not a kernel of the scan's path: it is not counted in
+    ``LAUNCHES``."""
+    tensors = (n, needed, res, num, den)
+    if any(t.device.type != "cuda" or t.dtype != I64 or not t.is_contiguous() for t in tensors):
+        raise ValueError("k8_sweep: takes contiguous int64 CUDA tensors")
+    if needed.shape != res.shape or num.shape != den.shape:
+        raise ValueError("k8_sweep: paired inputs differ in shape")
+    isq, cq, fq = torch.empty_like(n), torch.empty_like(needed), torch.empty_like(num)
+    lib = _lib("place_scan")
+    with torch.cuda.device(n.device):
+        stream = torch.cuda.current_stream(n.device).cuda_stream
+        err = lib.k8_sweep_launch(n.data_ptr(), isq.data_ptr(), n.numel(), needed.data_ptr(),
+                                  res.data_ptr(), cq.data_ptr(), needed.numel(), num.data_ptr(),
+                                  den.data_ptr(), fq.data_ptr(), num.numel(),
+                                  ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"k8_sweep launch failed: {lib.place_scan_error_string(err).decode()}")
+    return isq, cq, fq
 
 
 # -- forced_eval (K4) ---------------------------------------------------------

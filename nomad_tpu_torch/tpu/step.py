@@ -252,56 +252,11 @@ def _step(static, carry, x, skip_step: bool, stats=None):
     active_s = terms.active_s
 
     # -- ring-ordered limit + max-score selection (engine.py:660-723) -----
-    valid = iota < n_real_i
-    nr = max(n_real_i, 1)
-    feas_v = feasible & valid
-    low = feas_v & (final <= 0)
-
-    def ring_cumsum(a_int):
-        s_nat = torch.cumsum(a_int, dim=0, dtype=I32)
-        total = s_nat[-1]
-        before = torch.where(iota < offset, a_int, torch.zeros_like(a_int)).sum(
-            dtype=I32)
-        ring = torch.where(iota >= offset, s_nat - before, s_nat + (total - before))
-        return ring, total
-
-    if n_pad < PACK_COUNT_MAX:
-        packed_cum, packed_total = ring_cumsum(pack_count_lanes_torch(low, feas_v))
-        low_cum = unpack_count_lo_torch(packed_cum)
-        feas_cum = unpack_count_hi_torch(packed_cum)
-        low_total = int(unpack_count_lo_torch(packed_total))
-        feas_total = int(unpack_count_hi_torch(packed_total))
+    chosen, best_score, _, pulls = ring_select(final, feasible, n_real_i, offset, limit, neg_inf)
+    if skip_step:
+        chosen, pulls = -1, 0
     else:
-        low_cum, low_total_t = ring_cumsum(low.to(I32))
-        feas_cum, feas_total_t = ring_cumsum(feas_v.to(I32))
-        low_total, feas_total = int(low_total_t), int(feas_total_t)
-
-    skipped = low & (low_cum <= MAX_SKIP)
-    skip_cum = low_cum.clamp(max=MAX_SKIP)
-    ret = feas_v & ~skipped
-    ret_cum = feas_cum - skip_cum
-    ret_excl = ret_cum - ret.to(I32)
-
-    pulled = valid & (ret_excl < limit)
-    src_cand = ret & pulled
-    ret_total = feas_total - min(low_total, MAX_SKIP)
-    backlog_n = max(limit - ret_total, 0)
-    skip_excl = skip_cum - skipped.to(I32)
-    backlog_cand = skipped & (skip_excl < backlog_n)
-    cand = src_cand | backlog_cand
-
-    rank = torch.where(src_cand, ret_excl, ret_total + skip_excl)
-    cand_scores = torch.where(cand, final, torch.full_like(final, neg_inf))
-    best_score = cand_scores.max().item()
-    winners = cand & (cand_scores == best_score)
-    best_rank = int(torch.where(winners, rank, torch.full_like(rank, INT32_MAX)).min())
-    chosen = -1
-    if bool(cand.any()) and not skip_step:
-        # torch.argmax takes no bools and returns the first maximum
-        chosen = int(torch.argmax((winners & (rank == best_rank)).to(I32)))
-    pulls = 0 if skip_step else int(pulled.sum())
-    if not skip_step:
-        offset_t.fill_((offset + pulls) % nr)
+        offset_t.fill_((offset + pulls) % max(n_real_i, 1))
 
     # -- apply placement (engine.py:726-754) ------------------------------
     success = chosen >= 0
@@ -372,6 +327,65 @@ def _step(static, carry, x, skip_step: bool, stats=None):
         failed[g] = True
 
     return chosen, (best_score if success else 0), pulls, evict_out
+
+
+def ring_select(final, feasible, n_real_i: int, offset: int, limit: int, neg_inf):
+    """The ring-ordered LimitIterator emulation and the max-score
+    selection of one step (engine.py:660-723) over the node axis:
+    ``(chosen, best score, best rank, pulls)``, chosen -1 (and the rank
+    INT32_MAX) where no node is a candidate. ``final`` holds every
+    node's score, ``feasible`` its feasibility before the ``n_real``
+    cut."""
+    n_pad = final.shape[0]
+    iota = torch.arange(n_pad, dtype=I32, device=final.device)
+    valid = iota < n_real_i
+    feas_v = feasible & valid
+    low = feas_v & (final <= 0)
+
+    def ring_cumsum(a_int):
+        s_nat = torch.cumsum(a_int, dim=0, dtype=I32)
+        total = s_nat[-1]
+        before = torch.where(iota < offset, a_int, torch.zeros_like(a_int)).sum(
+            dtype=I32)
+        ring = torch.where(iota >= offset, s_nat - before, s_nat + (total - before))
+        return ring, total
+
+    if n_pad < PACK_COUNT_MAX:
+        packed_cum, packed_total = ring_cumsum(pack_count_lanes_torch(low, feas_v))
+        low_cum = unpack_count_lo_torch(packed_cum)
+        feas_cum = unpack_count_hi_torch(packed_cum)
+        low_total = int(unpack_count_lo_torch(packed_total))
+        feas_total = int(unpack_count_hi_torch(packed_total))
+    else:
+        low_cum, low_total_t = ring_cumsum(low.to(I32))
+        feas_cum, feas_total_t = ring_cumsum(feas_v.to(I32))
+        low_total, feas_total = int(low_total_t), int(feas_total_t)
+
+    skipped = low & (low_cum <= MAX_SKIP)
+    skip_cum = low_cum.clamp(max=MAX_SKIP)
+    ret = feas_v & ~skipped
+    ret_cum = feas_cum - skip_cum
+    ret_excl = ret_cum - ret.to(I32)
+
+    pulled = valid & (ret_excl < limit)
+    src_cand = ret & pulled
+    ret_total = feas_total - min(low_total, MAX_SKIP)
+    backlog_n = max(limit - ret_total, 0)
+    skip_excl = skip_cum - skipped.to(I32)
+    backlog_cand = skipped & (skip_excl < backlog_n)
+    cand = src_cand | backlog_cand
+
+    rank = torch.where(src_cand, ret_excl, ret_total + skip_excl)
+    cand_scores = torch.where(cand, final, torch.full_like(final, neg_inf))
+    best_score = cand_scores.max().item()
+    winners = cand & (cand_scores == best_score)
+    best_rank = int(torch.where(winners, rank, torch.full_like(rank, INT32_MAX)).min())
+    chosen = -1
+    if bool(cand.any()):
+        # torch.argmax takes no bools and returns the first maximum
+        chosen = int(torch.argmax((winners & (rank == best_rank)).to(I32)))
+    return chosen, best_score, best_rank, int(pulled.sum())
+
 
 
 def _spread_lookup(t):

@@ -211,3 +211,151 @@ def test_chunk_kernel_deficit_handoff(cuda):
     got = kernels.chunk_scan(n_pad, s, kc, xt, kd, chunk=64)
     parity.check_chunk_scan(plain, got, "tail")
     assert int(got[1].sum()) > 0
+
+
+# -- the cluster launch: every cluster size the plan allows -------------------
+
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+
+
+def _cut_nodes(st, ca, xs, n):
+    """The eval cut to its first ``n`` nodes (an axis that no cluster size
+    divides): node axes sliced, n_real and the ring offset kept inside,
+    per-placement node ids past the cut dropped (-1)."""
+    st, ca, xs = list(st), list(ca), list(xs)
+    for k, axis in ((0, 0), (3, 1), (4, 1), (9, 2), (17, 1), (20, 0), (21, 0), (22, 0),
+                    (23, 0), (24, 0), (25, 0)):
+        st[k] = np.take(st[k], range(n), axis=axis)
+    if st[1].shape[0]:
+        st[1] = st[1][:n]
+    if st[16].shape[1]:
+        st[16] = st[16][:, :n]
+    st[15] = np.minimum(st[15], n)
+    for k, axis in ((0, 0), (1, 1), (2, 0), (9, 0)):
+        ca[k] = np.take(ca[k], range(n), axis=axis)
+    for k in (7, 10):
+        if ca[k].shape[0]:
+            ca[k] = ca[k][:n]
+    ca[5] = ca[5] % n
+    for k in (1, 2, 9):
+        xs[k] = np.where(xs[k] >= n, -1, xs[k]).astype(xs[k].dtype)
+    return tuple(st), tuple(ca), tuple(xs)
+
+
+def _arm_case(arm, n_nodes, p, seed, variant=None):
+    dtype = np.float32 if arm == "float" else np.int32
+    variant = variant or ("preempt" if arm == "has_pre" else "all")
+    return example_scan_variant(variant, n_nodes=n_nodes, n_tgs=3, n_placements=p, seed=seed,
+                                dtype=dtype)
+
+
+def _check_arm(arm, plain, out, tg, what):
+    if arm == "float":
+        parity.check_float_scan(plain, out, tg, what)
+    else:
+        assert _equal(out, plain), what
+
+
+@pytest.mark.parametrize("variant", SCAN_VARIANTS + ("preempt", "preempt_forced"))
+def test_kernel_equals_plain_at_every_cluster_size(cuda, variant):
+    """Each variant at every cluster size: the int arm (and has_pre) bit
+    for bit with the plain version, the float arm within the bound and
+    bit for bit across cluster sizes."""
+    arms = ("int",) if variant.startswith("preempt") else ("int", "float")
+    for arm in arms:
+        n_pad, st, ca, xs = _arm_case(arm, 700, 48, 7, variant)
+        s, c, x = convert.scan_inputs_to_torch(st, ca, xs, cuda)
+        plain = step.place_scan(n_pad, s, c, x)
+        first = None
+        for cs in CLUSTER_SIZES:
+            batched = tuple(tuple(t.unsqueeze(0) for t in part) for part in (s, c, x))
+            assert kernels.scan_plan(*batched, cs=cs).cs == cs
+            out = kernels.place_scan(n_pad, s, tuple(t.clone() for t in c), x, cs=cs)
+            torch.cuda.synchronize()
+            _check_arm(arm, plain, out, x[0], f"{variant} {arm} CS={cs}")
+            first = first or out
+            assert _equal(out, first), f"{variant} {arm}: CS={cs} differs from CS=1"
+
+
+@pytest.mark.parametrize("arm", ["int", "float", "has_pre"])
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_batched_uneven_node_axis_at_every_cluster_size(cuda, arm, B):
+    """B evals of 997 nodes (no cluster size divides it) in one launch at
+    every cluster size, each eval against its plain version."""
+    evals = [_cut_nodes(*_arm_case(arm, 1000, 24, 40 + b)[1:], 997) for b in range(B)]
+    stacked = [tuple(np.stack(col) for col in zip(*(e[k] for e in evals))) for k in range(3)]
+    sb, cb, xb = convert.scan_inputs_to_torch(*stacked, cuda)
+    plains = [step.place_scan(997, tuple(t[b] for t in sb), tuple(t[b] for t in cb),
+                              tuple(t[b] for t in xb)) for b in range(B)]
+    assert kernels.scan_plan(sb, cb, xb).cs == min(4, 128 // B)
+    for cs in CLUSTER_SIZES:
+        carry_b, ys_b = kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb, cs=cs)
+        torch.cuda.synchronize()
+        for b, plain in enumerate(plains):
+            got = (tuple(t[b] for t in carry_b), tuple(y[b] for y in ys_b))
+            _check_arm(arm, plain, got, xb[0][b], f"{arm} B={B} CS={cs} eval {b}")
+
+
+@pytest.mark.parametrize("arm", ["int", "float", "has_pre"])
+def test_ctas_without_nodes(cuda, arm):
+    """Eight nodes over clusters of 16 and 8: CTAs 8-15 own no node and
+    take part in every barrier."""
+    n_pad, st, ca, xs = _arm_case(arm, 6, 20, 3)
+    assert n_pad == 8
+    s, c, x = convert.scan_inputs_to_torch(st, ca, xs, cuda)
+    plain = step.place_scan(n_pad, s, c, x)
+    for cs in (16, 8):
+        plan = kernels.scan_plan(*(tuple(t.unsqueeze(0) for t in part) for part in (s, c, x)),
+                                 cs=cs)
+        assert plan.slices[-1] == (8, 8) if cs == 16 else plan.per == 1
+        out = kernels.place_scan(n_pad, s, tuple(t.clone() for t in c), x, cs=cs)
+        torch.cuda.synchronize()
+        _check_arm(arm, plain, out, x[0], f"{arm} CS={cs}")
+
+
+def _widen_vocab(st, ca, v):
+    """The spreads' value vocabulary widened to ``v`` (a per-node
+    attribute's size): the tables padded with zeros, and every other
+    node moved to a value of its own."""
+    st, ca = list(st), list(ca)
+    pad = ((0, 0), (0, 0), (0, v - st[10].shape[2]))
+    st[10] = np.pad(st[10], pad)
+    ca[3] = np.pad(ca[3], pad)
+    ca[4] = np.pad(ca[4], pad)
+    node = np.arange(st[9].shape[2])
+    st[9] = np.where(node % 2 == 1, node % (v - 1), st[9]).astype(st[9].dtype)
+    return tuple(st), tuple(ca)
+
+
+@pytest.mark.parametrize("arm,cs", [("int", 1), ("float", 1), ("has_pre", 4)])
+def test_global_fallbacks_equal_plain(cuda, arm, cs):
+    """20,000 nodes at a small cluster size, with a spread vocabulary as
+    large as the node axis: the plan leaves per-node slices in their
+    tensors and the spread replicas in the per-CTA global arena, and the
+    kernel still equals the plain version."""
+    n_pad, st, ca, xs = _arm_case(arm, 20000, 12, 9, "preempt" if arm == "has_pre" else "all")
+    if arm != "has_pre":
+        st, ca = _widen_vocab(st, ca, n_pad + 1)
+    s, c, x = convert.scan_inputs_to_torch(st, ca, xs, cuda)
+    plan = kernels.scan_plan(*(tuple(t.unsqueeze(0) for t in part) for part in (s, c, x)), cs=cs)
+    assert plan.cs == cs and "used" in plan.in_global
+    assert arm == "has_pre" or "spread_counts" in plan.arena
+    plain = step.place_scan(n_pad, s, c, x)
+    out = kernels.place_scan(n_pad, s, tuple(t.clone() for t in c), x, cs=cs)
+    torch.cuda.synchronize()
+    _check_arm(arm, plain, out, x[0], f"{arm} CS={cs} with global fallbacks")
+
+
+def test_k8_sweep_equals_plain(cuda):
+    """The scan's isqrt64, coord_q and floordiv_pos (double precision with
+    an integer fix-up) against isqrt_t / coord_q_t and torch's floor
+    division on the card, over the edge cases of
+    ``kernels.k8_sweep_inputs``."""
+    from nomad_tpu_torch.tpu import preempt
+
+    n, needed, res, num, den = (torch.from_numpy(a).to(cuda)
+                                for a in kernels.k8_sweep_inputs(3, 1 << 18))
+    isq, cq, fq = kernels.k8_sweep(n, needed, res, num, den)
+    assert torch.equal(isq, preempt.isqrt_t(n))
+    assert torch.equal(cq, preempt.coord_q_t(needed, res))
+    assert torch.equal(fq, torch.div(num, den, rounding_mode="floor"))
