@@ -19,6 +19,10 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    placement-multiset divergence (bound 0) and the score difference at
    equal picks (``parity.FLOAT_SCORE_TOL``); then, in both arms, B = 8
    evals in one launch (K3) against eight single launches, with times;
+   and K3 at n_pad 33,024 with more evals than the card holds clusters
+   of the plan's size at once (B = 80, P = 4, int arm): the clusters
+   run in waves, bit for bit against single launches, with the cluster
+   size and the wave count printed;
 5. the forced-node kernel (K4) against its plain version, both arms, bit
    for bit, at 5,000 nodes with P = 5,000 forced nodes, and with two
    device dims and a padded placement axis; then against the scan
@@ -77,18 +81,26 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    over ``kernels.k8_sweep_inputs``' edge cases;
 12. the chunked tier (K5, after phase 6): the chunk kernel against its
    plain version on the card (every step's chosen set equal, integer
-   outputs exact, scores within 1e-5, top_idx equal over all K slots)
-   on bench.py's full C1M chunk run (5,000 nodes, 8 task groups,
-   1,000,000 placements, bulk K = 1,024 then a tail at K = 256 with 12
-   retry rounds and the deficit handed over), spread + affinity,
-   distinct_hosts, a capacity-tight fleet and n_pad >= 32,768, with
-   torch.topk's time on a step's row beside it; then (after phase 8)
-   the server slice at defaults but scheduler_algorithm =
-   "tpu_binpack_chunked": every placement committed, no node
-   overcommitted, every job's eval through the chunk kernel and none
-   fallen back, the sampled-parity tally printed; every chunk launch
-   replayed kernel vs plain, and every chunked eval's encode run
-   through the exact float scan kernel to print the tier's divergence.
+   outputs exact, scores within 1e-5, top_idx equal over all K slots),
+   at the launch plan's cluster size and at a forced CS = 1 held bit
+   for bit against it (skipped, with the reason, where the plan allows
+   no CS = 1), on bench.py's full C1M chunk run (5,000 nodes, 8 task
+   groups, 1,000,000 placements, bulk K = 1,024 then a tail at K = 256
+   with 12 retry rounds and the deficit handed over; its threshold ties
+   straddle the CTAs' slices), spread + affinity, distinct_hosts, a
+   capacity-tight fleet, n_pad 33,024, K = 5,000 at 8,192 nodes and
+   K = n_pad at n_pad 32,768, with torch.topk's time on a step's row at
+   each K beside it, the C1M run at every cluster size, and the section
+   timing (``kernels.chunk_scan_sections``) of the C1M run and of
+   n_pad 33,024; then (after phase 8) the server slice at defaults but
+   scheduler_algorithm = "tpu_binpack_chunked": every placement
+   committed, no node overcommitted, every job's eval through the chunk
+   kernel and none fallen back, each chunked eval's inputs moved with
+   exactly one (packed) host-to-device copy, run_chunked's host time by
+   section, the sampled-parity tally printed; every chunk launch
+   replayed kernel vs plain at the plan's CS and at CS = 1, and every
+   chunked eval's encode run through the exact float scan kernel to
+   print the tier's divergence.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -377,6 +389,43 @@ def phase_batched(kernels, convert, engine):
             f"bound_ms={bound_ms:.6f}")
 
 
+def phase_batched_waves(kernels, convert, engine):
+    """K3 at n_pad 33,024 with more evals than the card holds clusters of
+    the plan's size at once (int arm, P cut to 4): the launch runs in
+    waves and equals single launches of the same evals bit for bit."""
+    import numpy as np
+
+    base = [engine.example_scan_variant("all", n_nodes=33000, n_tgs=2, n_placements=4,
+                                        seed=80 + i) for i in range(4)]
+    n_pad = base[0][0]
+    singles, inputs = [], []
+    for _, st, ca, xs in base:
+        inputs.append(convert.scan_inputs_to_torch(st, ca, xs, DEVICE))
+        singles.append(run_kernel(kernels, n_pad, *inputs[-1]))
+    B = 80
+    for _ in range(2):
+        evals = [base[b % len(base)] for b in range(B)]
+        stacked = [tuple(np.stack(col) for col in zip(*(e[k] for e in evals))) for k in (1, 2, 3)]
+        sb, cb, xb = convert.scan_inputs_to_torch(*stacked, DEVICE)
+        plan = kernels.scan_plan(sb, cb, xb)
+        resident = kernels.max_active_clusters(plan.cs, plan.smem_bytes, True)
+        if B > resident:
+            break
+        B = resident + 1
+    waves = kernels.scan_waves(plan, B, True)
+    if waves < 2:
+        raise AssertionError(f"K3 waves: B={B} fits the {resident} resident clusters")
+    carry_b, ys_b = kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb)
+    for b in range(B):
+        compare((tuple(t[b] for t in carry_b), tuple(y[b] for y in ys_b)), singles[b % len(base)],
+                f"K3 waves eval {b}")
+    b_ms = cuda_ms(lambda: kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb))
+    single_ms = cuda_ms(lambda: run_kernel(kernels, n_pad, *inputs[0]))
+    log(f"K3 waves: B={B} n_pad={n_pad} P=4 cs={plan.cs} resident_clusters={resident} "
+        f"waves={waves} equal to single launches bit for bit; batched_ms={b_ms:.3f} "
+        f"single_ms={single_ms:.3f}")
+
+
 def phase_forced(kernels, convert, engine, forced):
     """K4 against its plain version on the card, both arms, at N_NODES
     nodes with one forced node per node (P = N_NODES), and with two
@@ -529,33 +578,80 @@ def c1m_chunk_schedules(chunk):
     return xs_bulk, xs_tail
 
 
-def run_chunk_phases(chunk_fn, n_pad, static, carry, phases):
+def run_chunk_phases(chunk_fn, n_pad, static, carry, phases, cs=None):
     """Run ``phases`` ([(xs, K)]) in order through ``chunk_fn`` (the
-    kernel's wrapper or the plain version), each fed the carry and the
-    deficit of the one before; returns [(carry, deficit, ys)] per phase.
-    The given carry is not modified."""
+    kernel's wrapper, at the plan's cluster size or a forced ``cs``, or
+    the plain version), each fed the carry and the deficit of the one
+    before; returns [(carry, deficit, ys)] per phase. The given carry is
+    not modified."""
     carry = tuple(t.clone() for t in carry)
     deficit, outs = None, []
     for xs, k in phases:
-        carry, deficit, ys = chunk_fn(n_pad, static, carry, xs, deficit, chunk=k)
+        kw = {} if cs is None else {"cs": cs}
+        carry, deficit, ys = chunk_fn(n_pad, static, carry, xs, deficit, chunk=k, **kw)
         outs.append((carry, deficit, ys))
         carry = tuple(t.clone() for t in carry)
         deficit = deficit.clone()
     return outs
 
 
+def chunk_equal(a, b) -> bool:
+    """Two K5 runs' outputs, carries and deficits the same bits."""
+    return all(torch_equal(x, y) for (ca, da, ya), (cb, db, yb) in zip(a, b)
+               for x, y in zip((*ca[:4], da, *ya), (*cb[:4], db, *yb)))
+
+
+def chunk_sections_line(kernels, n_pad, s, c, ph) -> str:
+    """Section timing of a K5 run at the plan's CS: thread 0's clock64
+    cycles a step in each part (``kernels.CHUNK_SECTIONS``), summed over
+    the run's phases, mean over the CTAs [min-max], with the share."""
+    carry, deficit, total, steps = tuple(t.clone() for t in c), None, None, 0
+    for xs, k in ph:
+        (carry, deficit, _), cycles = kernels.chunk_scan_sections(n_pad, s, carry, xs, deficit,
+                                                                   chunk=k)
+        total = cycles if total is None else total + cycles
+        steps += int(xs[0].shape[0])
+    per_cta = total.double() / max(steps, 1)
+    per = per_cta.mean(dim=0).tolist()
+    lo, hi = per_cta.min(dim=0).values.tolist(), per_cta.max(dim=0).values.tolist()
+    whole = sum(per)
+    return (f"cs={total.shape[0]} cycles a step, mean [min-max over CTAs] " + " ".join(
+        f"{n}={v:.0f} [{a:.0f}-{b:.0f}] ({v / whole * 100:.1f}%)"
+        for n, v, a, b in zip(kernels.CHUNK_SECTIONS, per, lo, hi)) + f" total={whole:.0f}")
+
+
+def threshold_slices(kernels, chunk, s, c, xs, k) -> int:
+    """How many of the plan's CTA slices hold a node whose key equals the
+    first step's K-th largest key (the threshold's ties)."""
+    import torch
+
+    key = chunk.score_key(chunk.masked_scores(s, c, int(xs[0][0])))
+    thr = torch.sort(key, descending=True).values[k - 1]
+    tied = torch.nonzero(key == thr).flatten().cpu()
+    plan = kernels.chunk_scan_plan(s, k)
+    return len({int(i) // plan.per for i in tied})
+
+
 def phase_chunk_variants(kernels, chunk, convert, engine, parity):
     """K5 against its plain version on the card (``parity.check_chunk_scan``:
     every step's chosen set equal, integer outputs and integer-valued
-    carries exact, scores within 1e-5, top_idx equal over all K slots):
-    the full C1M chunk run of bench.py (5,000 nodes, 8 task groups,
-    1,000,000 placements, bulk K = 1,024 then a tail at K = 256 with 12
-    retry rounds and the bulk's deficit handed over), then spread +
-    affinity, distinct_hosts, a capacity-tight fleet whose deficit
-    drains through retry rounds, and n_pad >= 32,768. Prints the placed
-    count, the kernel's and the plain version's ms, the bound and
-    torch.topk's time on the step's masked row (a yardstick for the
-    selection alone). Returns (worst |dscore|, records)."""
+    carries exact, scores within 1e-5, top_idx equal over all K slots),
+    at the launch plan's cluster size and again at a forced CS = 1 held
+    bit for bit against it: the full C1M chunk run of bench.py (5,000
+    nodes, 8 task groups, 1,000,000 placements, bulk K = 1,024 then a
+    tail at K = 256 with 12 retry rounds and the bulk's deficit handed
+    over; C1M's mock nodes tie exactly, so the threshold's ties straddle
+    the CTAs' slices), spread + affinity, distinct_hosts, a
+    capacity-tight fleet whose deficit drains through retry rounds,
+    n_pad 33,024, K = 5,000 at 8,192 nodes (past the shared-memory list),
+    K = n_pad at n_pad 1,024 and at n_pad 32,768 (a few steps; CS = 1 is
+    held at every case but the last, whose slice one CTA cannot hold,
+    and nowhere else may the plan refuse it). Prints the placed
+    count, the kernel's ms at the plan's CS and at CS = 1, the plain
+    version's ms, the bound, torch.topk's time on a step's row at each K
+    (a yardstick for the selection alone), the C1M run at every cluster
+    size, and the section timing of the C1M run and of n_pad 33,024.
+    Returns (worst |dscore|, records)."""
     import torch
 
     xs_bulk, xs_tail = c1m_chunk_schedules(chunk)
@@ -570,6 +666,12 @@ def phase_chunk_variants(kernels, chunk, convert, engine, parity):
           (chunk.chunk_schedule([(0, 20), (1, 20)], 64, retry_rounds=4), 64)]),
         ("open", 33000, 2,
          [(chunk.chunk_schedule([(0, 20000), (1, 15000)], 1024, retry_rounds=2), 1024)]),
+        ("c1m", 8192, 2,
+         [(chunk.chunk_schedule([(0, 9000), (1, 6000)], 5000, retry_rounds=1), 5000)]),
+        ("spread_affinity", 1024, 2,
+         [(chunk.chunk_schedule([(0, 1500), (1, 900)], 1024, retry_rounds=1), 1024)]),
+        ("open", 32768, 1,
+         [(chunk.chunk_schedule([(0, 40000)], 32768, retry_rounds=1), 32768)]),
     ]
     worst, recs = 0.0, []
     for variant, n_nodes, n_tgs, phases in cases:
@@ -577,14 +679,32 @@ def phase_chunk_variants(kernels, chunk, convert, engine, parity):
                                                      seed=0)
         s, c, _ = convert.scan_inputs_to_torch(st, ca, (), DEVICE)
         ph = [(convert.to_torch(xs, DEVICE), k) for xs, k in phases]
+        what = f"K5 {variant} n_pad={n_pad} K={[k for _, k in ph]}"
         got = run_chunk_phases(kernels.chunk_scan, n_pad, s, c, ph)
         plain, p_ms = timed_wall(lambda: run_chunk_phases(chunk.chunk_scan, n_pad, s, c, ph))
         for i, (ref, out) in enumerate(zip(plain, got)):
-            div, diff, all_slots, exact = parity.check_chunk_scan(ref, out, f"K5 {variant} phase {i}")
+            div, diff, all_slots, exact = parity.check_chunk_scan(ref, out, f"{what} phase {i}")
             if not all_slots:
-                raise AssertionError(f"K5 {variant} phase {i}: top_idx differs from plain")
+                raise AssertionError(f"{what} phase {i}: top_idx differs from plain")
             worst = max(worst, diff)
         k_ms = cuda_ms(lambda: run_chunk_phases(kernels.chunk_scan, n_pad, s, c, ph))
+        k_max = max(k for _, k in ph)
+        cs = kernels.chunk_scan_plan(s, k_max).cs
+        try:
+            kernels.chunk_scan_plan(s, k_max, 1)
+        except ValueError as e:
+            # only K = n_pad past one CTA's shared memory (32,768 keys
+            # and as many placed nodes) may go without the CS = 1 hold
+            if k_max != n_pad or n_pad < 32768:
+                raise AssertionError(f"{what}: the plan refuses CS=1: {e}") from e
+            log(f"{what}: CS=1 not run (the plan refuses it: {e})")
+            cs1_ms = None
+        else:
+            at1 = run_chunk_phases(kernels.chunk_scan, n_pad, s, c, ph, cs=1)
+            if not chunk_equal(at1, got):
+                raise AssertionError(f"{what}: CS=1 differs from the plan's CS={cs}")
+            cs1_ms = cuda_ms(lambda: run_chunk_phases(kernels.chunk_scan, n_pad, s, c, ph, cs=1),
+                             reps=1)
         steps = sum(int(xs[0].shape[0]) for xs, _ in ph)
         placed = sum(int(out[2][3].sum()) for out in got)
         nbytes = ops = 0
@@ -592,73 +712,140 @@ def phase_chunk_variants(kernels, chunk, convert, engine, parity):
             nb, op = kernels.chunk_scan_work(s, c, xs, k, out[2][3])
             nbytes, ops = nbytes + nb, ops + op
         b_ms, b_by = bound(nbytes, ops)
-        # torch.topk over the first step's masked row at the first K
+        # torch.topk over the first step's masked row at each K of the run
         row = chunk.masked_scores(s, c, int(ph[0][0][0][0]))
-        k0 = ph[0][1]
-        topk_ms = cuda_ms(lambda: torch.topk(row, k0), reps=21)
+        topk = {k: cuda_ms(lambda: torch.topk(row, k), reps=21) for k in sorted({k for _, k in ph})}
         rec = {"variant": variant, "n_pad": n_pad, "steps": steps, "placed": placed,
-               "deficit": int(got[-1][1].sum()), "kernel_ms": k_ms, "plain_ms": p_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "topk_ms": topk_ms, "max_abs_err": worst}
+               "deficit": int(got[-1][1].sum()), "kernel_ms": k_ms, "cs": cs, "cs1_ms": cs1_ms,
+               "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "topk_ms": topk,
+               "max_abs_err": worst}
         recs.append(rec)
-        log(f"K5 {variant:15s} n_pad={n_pad} G={n_tgs} K={[k for _, k in ph]} steps={steps} "
-            f"placed={placed} deficit_left={rec['deficit']} equal=yes (top_idx all slots, "
-            f"bit_exact={'yes' if exact else 'no'}) kernel_ms={k_ms:.3f} "
-            f"per_step_ms={k_ms / max(steps, 1):.4f} plain_ms={p_ms:.1f} bytes={nbytes} ops={ops} "
-            f"bound_ms={b_ms:.6f} ({b_by}) torch_topk_ms={topk_ms:.4f} (K={k0}, one step's row)")
-        if variant == "c1m":
+        log(f"{what:40s} G={n_tgs} steps={steps} placed={placed} deficit_left={rec['deficit']} "
+            f"equal=yes (top_idx all slots, bit_exact={'yes' if exact else 'no'}"
+            f"{'' if cs1_ms is None else '; CS=1 bit for bit'}) cs={cs} kernel_ms={k_ms:.3f} per_step_ms={k_ms / max(steps, 1):.4f} "
+            f"cs1_ms={fmt_ms(cs1_ms)} plain_ms={p_ms:.1f} bytes={nbytes} ops={ops} "
+            f"bound_ms={b_ms:.6f} ({b_by}) torch_topk_ms (one step's row) "
+            + " ".join(f"K={k}:{v:.4f}" for k, v in topk.items()))
+        if variant == "c1m" and n_nodes == N_NODES:
             log(f"K5 c1m: {placed} of {C1M_PLACEMENTS} placements in {k_ms:.3f} ms of kernel "
-                f"({placed / k_ms * 1000:.0f} placements/s on the card)")
+                f"({placed / k_ms * 1000:.0f} placements/s on the card); the first step's "
+                f"threshold ties span {threshold_slices(kernels, chunk, s, c, ph[0][0], BULK_K)} "
+                f"of {cs} slices")
             if placed != C1M_PLACEMENTS:
                 raise AssertionError(f"K5 c1m placed {placed} of {C1M_PLACEMENTS}")
+            by_cs = {}
+            for k_cs in (1, 2, 4, 8, 16):
+                by_cs[k_cs] = cuda_ms(lambda: run_chunk_phases(kernels.chunk_scan, n_pad, s, c,
+                                                               ph, cs=k_cs), reps=1)
+            log("K5 c1m: ms of the run by cluster size " + json.dumps(
+                {k_cs: round(v, 3) for k_cs, v in by_cs.items()}))
+        if (variant == "c1m" and n_nodes == N_NODES) or n_pad == 33024:
+            log(f"  {what}: {chunk_sections_line(kernels, n_pad, s, c, ph)}")
         if variant == "tight" and not (int(got[0][1].sum()) > 0
                                        and placed > int(got[0][2][3].sum())):
             raise AssertionError("K5 tight: the bulk left no deficit, or the tail placed none of it")
     return worst, recs
 
 
+def packed_ms(kernels, fresh, cs=None, reps: int = 3) -> float:
+    """Device ms of one ``kernels.chunk_scan_packed`` launch (the chunked
+    server's own wrapper) at the plan's CS or a forced ``cs``, each on
+    its own copy of the packed buffer ``fresh``, made before the timing
+    (a launch updates the buffer's carry in place)."""
+    import dataclasses
+
+    bufs = [dataclasses.replace(fresh, buf=fresh.buf.clone()) for _ in range(reps + 1)]
+    return cuda_ms(lambda: kernels.chunk_scan_packed(bufs.pop(), cs), reps)
+
+
+def packed_results(packed, out, out_layout):
+    """A packed K5 launch's outputs (top_idx, top_scores, valid, placed),
+    then the carry's first four arrays and the deficit it left in its
+    buffer, as numpy arrays."""
+    from nomad_tpu_torch.tpu.convert import from_device_packed, to_numpy
+
+    _s, carry, _x, deficit = packed.parts()
+    return (*from_device_packed(out, out_layout), *to_numpy((*carry[:4], deficit)))
+
+
 def replay_chunked(kernels, chunk, parity, spy):
-    """Every chunk launch of the chunked server run replayed: kernel vs
-    plain; then each chunked eval's encode through the exact float scan
-    kernel, and the tier's per-eval divergence from it (the sampled
-    parity at rate 1). Returns (per-launch (kernel ms, plain ms, bound
-    ms, bound by), worst |dscore|)."""
+    """Every chunk launch of the chunked server run. The main path's own
+    results (the outputs of its ``kernels.chunk_scan_packed`` call and
+    the carry and deficit that call left in its packed buffer) are held
+    against the plain version on the same inputs; then the launch is
+    replayed through the same wrapper on a buffer packed anew
+    (``kernels.pack_chunk_inputs``) from the same inputs, at the plan's
+    CS and at a forced CS = 1, each bit for bit against the main path's,
+    and timed there (the kernels line's chunk_scan ms), with the first
+    launch at every cluster size and its section timing; every chunked
+    eval made exactly one (packed) host-to-device copy; then each
+    chunked eval's encode through the exact float scan kernel, and the
+    tier's per-eval divergence from it (the sampled parity at rate 1).
+    Returns (per-launch (kernel ms, plain ms, bound ms, bound by), worst
+    |dscore|)."""
     import numpy as np
+    import torch
 
     from nomad_tpu_torch.tpu.convert import scan_inputs_to_torch, to_numpy, to_torch
 
-    rows, worst = [], 0.0
-    for i, (n_pad, s, c, x, d, k) in enumerate(spy.chunked):
-        if isinstance(c[0], np.ndarray) or np.isscalar(c[0]):
-            c = to_torch(c, DEVICE)  # an encode's carry, as run_chunked copies it
-        got = kernels.chunk_scan(n_pad, s, tuple(t.clone() for t in c), x,
-                                 None if d is None else d.clone(), chunk=k)
+    def same(a, b):
+        return all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a, b))
+
+    rows, worst, cs1 = [], 0.0, []
+    for i, (args, packed, out, out_layout) in enumerate(spy.chunked):
+        n_pad, k = packed.n_pad, packed.dims["K"]
+        main = packed_results(packed, out, out_layout)
+        # the plain version on the launch's inputs: (n_pad, static, carry,
+        # xs, deficit) as run_chunked packed them
+        s, c, x, (d,) = (to_torch(part, DEVICE) for part in (*args[1:4], args[4:5]))
         plain, p_ms = timed_wall(lambda: chunk.chunk_scan(n_pad, s, c, x, d, chunk=k))
-        div, diff, all_slots, _ = parity.check_chunk_scan(plain, got, f"chunk launch {i}")
+        div, diff, all_slots, _ = parity.check_chunk_scan(
+            plain, (main[4:8], main[8], main[:4]), f"chunk launch {i}")
         if not all_slots:
             raise AssertionError(f"chunk launch {i}: top_idx differs from plain")
         worst = max(worst, diff)
-        k_ms = cuda_ms(lambda: kernels.chunk_scan(n_pad, s, tuple(t.clone() for t in c), x,
-                                                  None if d is None else d.clone(), chunk=k))
-        nbytes, ops = kernels.chunk_scan_work(s, c, x, k, got[2][3])
+        fresh = kernels.pack_chunk_inputs(*args, k, DEVICE)
+        for forced in (None, 1):
+            again = kernels.pack_chunk_inputs(*args, k, DEVICE)
+            if not same(packed_results(again, *kernels.chunk_scan_packed(again, forced)), main):
+                raise AssertionError(f"chunk launch {i}: the replay at "
+                                     f"{'the plan' if forced is None else 'CS=1'} differs "
+                                     f"from the main path's launch")
+        k_ms = packed_ms(kernels, fresh)
+        cs1.append(packed_ms(kernels, fresh, 1, reps=1))
+        nbytes, ops = kernels.chunk_scan_work(s, c, x, k, torch.from_numpy(main[3]))
         b_ms, b_by = bound(nbytes, ops)
         rows.append((k_ms, p_ms, b_ms, b_by))
-    log(f"chunked server: {len(rows)} chunk launches replayed, kernel equal to plain on every "
-        f"step; mean kernel_ms={sum(r[0] for r in rows) / len(rows):.4f} mean plain_ms="
-        f"{sum(r[1] for r in rows) / len(rows):.2f} mean bound_ms="
+        if i == 0:
+            by_cs = {k_cs: packed_ms(kernels, fresh, k_cs) for k_cs in (1, 2, 4, 8, 16)}
+            log(f"chunked server launch 0: n_pad={n_pad} K={k} steps={x[0].shape[0]} ms by "
+                f"cluster size {json.dumps({a: round(b, 4) for a, b in by_cs.items()})}")
+            log(f"  chunked server launch 0: {chunk_sections_line(kernels, n_pad, s, c, [(x, k)])}")
+            plan_cs = kernels.chunk_scan_plan(s, k).cs
+    log(f"chunked server: {len(rows)} chunk launches: the main path's outputs, carry and "
+        f"deficit equal to plain on every step, and replayed through chunk_scan_packed at the "
+        f"plan's CS and at CS=1 bit for bit; cs={plan_cs} (launch 0) mean kernel_ms="
+        f"{sum(r[0] for r in rows) / len(rows):.4f} mean cs1_ms={sum(cs1) / len(cs1):.4f} "
+        f"mean plain_ms={sum(r[1] for r in rows) / len(rows):.2f} mean bound_ms="
         f"{sum(r[2] for r in rows) / len(rows):.6f} ({rows[0][3]}) max |dscore| {worst!r}")
     # run_chunked on the host clock, by section, with the 16 workers
-    # running: the encode's copies to the card, this spy's capture (by
-    # reference), the launch, the synchronizing copies back, the rest
-    # (the schedule and the FIFO expansion)
-    secs = {name: sorted(rec.get(name, 0.0) for _, _, rec in spy.chunk_evals)
-            for name in ("total", "h2d", "capture", "launch", "d2h")}
+    # running: the check and the one packed copy to the card, the
+    # launch, the one copy back with its synchronize, the rest (the
+    # schedule and the FIFO expansion)
+    copies = [cp for _, _, _, cp in spy.chunk_evals]
+    if any(cp != {"packed": 1, "loose": 0} for cp in copies):
+        raise AssertionError(f"chunked evals' host-to-device copies: {copies}")
+    log(f"chunked server: every one of {len(copies)} chunked evals made one packed "
+        f"host-to-device copy and no other")
+    secs = {name: sorted(rec.get(name, 0.0) for _, _, rec, _ in spy.chunk_evals)
+            for name in ("total", "h2d", "launch", "d2h")}
     secs["rest"] = sorted(rec["total"] - sum(v for n, v in rec.items() if n != "total")
-                          for _, _, rec in spy.chunk_evals)
+                          for _, _, rec, _ in spy.chunk_evals)
     log("chunked server: run_chunked host ms per eval (median / max / sum over "
         f"{len(spy.chunk_evals)} evals): " + "; ".join(
             f"{name} {v[len(v) // 2]:.2f} / {v[-1]:.2f} / {sum(v):.1f}" for name, v in secs.items()))
     divs, total = [], 0
-    for enc, chosen, _rec in spy.chunk_evals:
+    for enc, chosen, _rec, _cp in spy.chunk_evals:
         static, carry, xs = scan_inputs_to_torch(enc.static, enc.carry, enc.xs, DEVICE)
         _, ys = kernels.place_scan(enc.n_pad, static, carry, xs)
         ref = to_numpy(ys)[0][: enc.p]
@@ -757,15 +944,20 @@ class _Spy:
 
         import threading
 
-        from nomad_tpu_torch.tpu import engine
+        from nomad_tpu_torch.tpu import convert, engine
 
         self.kernels, self.metrics, self.engine_mod = kernels, metrics, engine
+        self.convert = convert
         self.engine_cls = engine.TorchPlacementEngine
         self.counted, self.reasons = [], []
         self.batched, self.forced = [], []
-        # chunk launches: (n_pad, static, carry, xs, deficit, K) as given;
+        # run_chunked's launches: (its pack_chunk_inputs arguments but the
+        # chunk size, by reference: numpy arrays nothing writes; the
+        # packed inputs, which the launch updated; the launch's output
+        # buffer and its layout);
         # chunked evals: (encode, expanded chosen, host ms of run_chunked
-        # by section: h2d, capture (this spy's clones), launch, d2h, total)
+        # by section: h2d, launch, d2h, total; the copies it made: packed
+        # host-to-device copies, loose ones)
         self.chunked, self.chunk_evals = [], []
         self._tls = threading.local()
         spy = self
@@ -786,13 +978,21 @@ class _Spy:
         if rec is not None:
             rec[name] = rec.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
 
+    def _copy(self, kind):
+        """Count one host-to-device copy of ``kind`` (packed or loose) in
+        the calling thread's run_chunked, if it is inside one."""
+        copies = getattr(self._tls, "copies", None)
+        if copies is not None:
+            copies[kind] += 1
+
     def __enter__(self):
         k, em = self.kernels, self.engine_mod
         self.orig = (self.metrics.incr_counter, k.place_scan_batched, k.forced_eval,
-                     k.chunk_scan, self.engine_cls.run_chunked, em.scan_inputs_to_torch,
-                     em.to_numpy)
-        (orig_incr, orig_batched, orig_forced, orig_chunk, orig_run_chunked, orig_h2d,
-         orig_d2h) = self.orig
+                     k.pack_chunk_inputs, k.chunk_scan_packed, self.engine_cls.run_chunked,
+                     self.convert.to_device_packed, em.from_device_packed,
+                     em.scan_inputs_to_torch)
+        (orig_incr, orig_batched, orig_forced, orig_pack, orig_chunk, orig_run_chunked,
+         orig_h2d, orig_d2h, orig_loose) = self.orig
 
         def count(name, value=1.0):
             self.counted.append(name)
@@ -810,28 +1010,31 @@ class _Spy:
                                      for part in (static, carry, xs)))
             return orig_forced(static, carry, xs)
 
-        def chunk_scan(n_pad, static, carry, xs, deficit=None, chunk=128):
+        def pack_chunk_inputs(n_pad, static, carry, xs, deficit, chunk, device="cuda"):
+            # run_chunked's inputs: checked and copied to the card
             t0 = time.perf_counter()
-            enc = getattr(self._tls, "enc", None)
-            if enc is not None and deficit is None:
-                # run_chunked's launch: static and xs are only read, and
-                # the carry is the encode's, copied afresh: keep references
-                # and the encode's numpy carry, and clone nothing
-                self.chunked.append((n_pad, static, enc.carry, xs, None, chunk))
-            else:
-                self.chunked.append((n_pad, *(tuple(t.clone() for t in part)
-                                              for part in (static, carry, xs)),
-                                     None if deficit is None else deficit.clone(), chunk))
-            self._section("capture", t0)
+            out = orig_pack(n_pad, static, carry, xs, deficit, chunk, device)
+            self._section("h2d", t0)
+            self._tls.args = (n_pad, static, carry, xs, deficit)
+            return out
+
+        def chunk_scan_packed(packed, cs=None):
+            # run_chunked's launch, with its inputs and outputs kept
             t0 = time.perf_counter()
-            out = orig_chunk(n_pad, static, carry, xs, deficit, chunk=chunk)
+            out = orig_chunk(packed, cs)
             self._section("launch", t0)
+            self.chunked.append((self._tls.args, packed, *out))
             return out
 
         def h2d(*args, **kwargs):
+            self._copy("packed")
+            return orig_h2d(*args, **kwargs)
+
+        def loose(*args, **kwargs):
             t0 = time.perf_counter()
-            out = orig_h2d(*args, **kwargs)
-            self._section("h2d", t0)
+            out = orig_loose(*args, **kwargs)
+            self._section("loose_h2d", t0)
+            self._copy("loose")
             return out
 
         def d2h(*args, **kwargs):
@@ -841,22 +1044,24 @@ class _Spy:
             return out
 
         def run_chunked(engine, enc, *args, **kwargs):
-            rec = {}
-            self._tls.rec, self._tls.enc = rec, enc
+            rec, copies = {}, {"packed": 0, "loose": 0}
+            self._tls.rec, self._tls.copies = rec, copies
             t0 = time.perf_counter()
             try:
                 out = orig_run_chunked(engine, enc, *args, **kwargs)
             finally:
-                self._tls.rec = self._tls.enc = None
+                self._tls.rec = self._tls.copies = None
             rec["total"] = (time.perf_counter() - t0) * 1e3
-            self.chunk_evals.append((enc, out[0].copy(), rec))
+            self.chunk_evals.append((enc, out[0].copy(), rec, copies))
             return out
 
         self.metrics.incr_counter = count
         # kernels.place_scan launches through kernels.place_scan_batched
-        k.place_scan_batched, k.forced_eval, k.chunk_scan = batched, forced, chunk_scan
+        (k.place_scan_batched, k.forced_eval, k.pack_chunk_inputs,
+         k.chunk_scan_packed) = batched, forced, pack_chunk_inputs, chunk_scan_packed
         self.engine_cls.run_chunked = run_chunked
-        em.scan_inputs_to_torch, em.to_numpy = h2d, d2h
+        self.convert.to_device_packed = h2d
+        em.from_device_packed, em.scan_inputs_to_torch = d2h, loose
         self.logger.addHandler(self.handler)
         self.level = self.logger.level
         self.logger.setLevel(logging.DEBUG)
@@ -866,9 +1071,9 @@ class _Spy:
     def __exit__(self, *exc):
         self.launches = dict(self.kernels.LAUNCHES)
         k = self.kernels
-        (self.metrics.incr_counter, k.place_scan_batched, k.forced_eval, k.chunk_scan,
-         self.engine_cls.run_chunked, self.engine_mod.scan_inputs_to_torch,
-         self.engine_mod.to_numpy) = self.orig
+        (self.metrics.incr_counter, k.place_scan_batched, k.forced_eval, k.pack_chunk_inputs,
+         k.chunk_scan_packed, self.engine_cls.run_chunked, self.convert.to_device_packed,
+         self.engine_mod.from_device_packed, self.engine_mod.scan_inputs_to_torch) = self.orig
         self.logger.removeHandler(self.handler)
         self.logger.setLevel(self.level)
         return False
@@ -1468,6 +1673,7 @@ def main() -> int:
     worst = phase_variants(kernels, step, convert, engine)
     worst_f = phase_float_variants(kernels, step, convert, engine)
     phase_batched(kernels, convert, engine)
+    phase_batched_waves(kernels, convert, engine)
     stamp("scan variants done")
     phase_forced(kernels, convert, engine, forced)
     phase_has_pre(kernels, step, convert, engine)

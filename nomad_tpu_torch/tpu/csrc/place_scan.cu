@@ -383,52 +383,6 @@ struct SpreadStat {
 static_assert(sizeof(SpreadStat<long long>) <= kStatBytes, "stat region");
 static_assert(sizeof(SpreadStat<float>) <= kStatBytes, "stat region");
 
-// -- the cluster exchange: st.async into each CTA's slot, counted by that
-// CTA's transaction barrier ---------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// the barrier's one arrival of a phase, expecting `bytes` of st.async
-__device__ __forceinline__ void mbar_arm(unsigned long long* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait for the phase of this parity to complete; a phase that never does
-// (a fault) traps after ~2**24 polls rather than hang the card
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
-  unsigned done = 0;
-  for (int k = 0; !done; ++k) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (k == (1 << 24)) asm volatile("trap;\n");
-  }
-}
-
-// 16 bytes into CTA rank's copy of dst, counted on its copy of bar
-__device__ __forceinline__ void st_async16(const void* dst, int rank, unsigned long long* bar,
-                                           uint4 v) {
-  unsigned rdst, rbar;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rdst) : "r"(smem_u32(dst)), "r"(rank));
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rbar) : "r"(smem_u32(bar)), "r"(rank));
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(rdst),
-      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(rbar)
-      : "memory");
-}
-
 // a read-only input, through the non-coherent L1 path
 template <typename E>
 __device__ __forceinline__ E ro(const E* p) {

@@ -48,10 +48,14 @@ Unlike the JAX engine, a failed kernel build or launch is not caught:
 it raises out of the scheduler's ``process()`` (the server's worker then
 nacks the eval back to the broker); nothing is placed on the host
 instead. That holds for the chunk kernel and for the sampler's
-reference scan too.
+reference scan too. Only a fault injected at the ``device_dispatch``
+chaos point (``ChaosFault``) degrades the eval to the host path, as the
+reference degrades any dispatch error (engine.py:1516-1526, counter
+``nomad.tpu_engine.dispatch_fallback_host``).
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import random as _random
 import threading
@@ -59,7 +63,9 @@ import time as _time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
+from ..chaos import ChaosFault
 from ..structs.network import NetworkIndex
 from ..structs.structs import (
     ALLOC_CLIENT_PENDING,
@@ -73,7 +79,13 @@ from ..utils.hostwork import HOST_WORK_SEM as _HOST_WORK_SEM
 from ..utils.lock_witness import witness_lock
 from . import kernels
 from .chunk import chunk_schedule
-from .convert import DeviceLike, resolve_device, scan_inputs_to_torch, to_numpy
+from .convert import (
+    DeviceLike,
+    from_device_packed,
+    resolve_device,
+    scan_inputs_to_torch,
+    to_numpy,
+)
 from .parity import tg_multiset_divergence
 
 # Partial OCC retries below device_min_placements still ride the device
@@ -333,6 +345,9 @@ class TorchPlacementEngine:
 
     def __init__(self, device: DeviceLike = "cuda") -> None:
         self.device = resolve_device(device)
+        # each calling thread's own CUDA stream for the chunked tier's
+        # copies and launch (never queued behind the batcher's scans)
+        self._streams = threading.local()
         # the chunked tier's sampled-parity tally (engine.py:1155-1166)
         self._parity_lock = witness_lock("engine.TorchPlacementEngine._parity_lock")
         self._parity_samples = {  # guarded-by: _parity_lock
@@ -441,6 +456,15 @@ class TorchPlacementEngine:
                     else:
                         chosen, scores, pulls, skipped_steps, evict = (
                             self.run_scan_single(enc))
+            except ChaosFault:
+                # an injected dispatch fault: the host iterator stack
+                # places the eval, as the reference does for any dispatch
+                # error (engine.py:1516-1526)
+                logger.warning("device dispatch failed for %s; host fallback",
+                               wave_id[:8], exc_info=True)
+                _metrics.incr_counter("nomad.tpu_engine.dispatch_fallback_host")
+                self._pipeline_forget(sched)
+                return NotImplemented
             except BaseException:
                 # the launch failed: the error reaches the worker, which
                 # nacks the eval; the remembered encode must not strand
@@ -522,6 +546,17 @@ class TorchPlacementEngine:
         scan's result shape (chosen, scores, pulls, skipped, evict), so
         both tiers share the apply path (engine.py:1283-1356).
 
+        The encode's static and carry arrays, the step arrays and the
+        deficit go to the device as ONE packed buffer
+        (``kernels.pack_chunk_inputs``: one copy from pinned host memory),
+        the kernel reads them through their offsets
+        (``kernels.chunk_scan_packed``: no tensor per array, so no GIL
+        hand-off per array among the server's worker threads), and the
+        outputs come back with one copy, all on the calling thread's own
+        stream: every tensor of the launch is made, used and released in
+        that stream's order, and the stream is synchronized before the
+        host reads the outputs.
+
         Placements of one task group are interchangeable here (the gate
         rejects every per-row feature), so each TG's rows fill in order
         from its chunks' valid picks; rows left unfilled after the retry
@@ -532,33 +567,30 @@ class TorchPlacementEngine:
 
         assert_chunk_gate(enc)
         tg_idx_p = np.asarray(enc.xs[0])[: enc.p]
-        counts: Dict[int, int] = {}
-        for gi in tg_idx_p.tolist():
-            counts[int(gi)] = counts.get(int(gi), 0) + 1
-        counts_by_tg = list(counts.items())
+        # each task group's count, in order of first appearance
+        tgs, first, n_of = np.unique(tg_idx_p, return_index=True, return_counts=True)
+        order = np.argsort(first)
+        counts_by_tg = [(int(g), int(n)) for g, n in zip(tgs[order], n_of[order])]
         chunk = int(max(1, min(chunk_k, enc.n_pad)))
         steps_tg, want = chunk_schedule(counts_by_tg, chunk, retry_rounds=retry_rounds)
-        static, carry, xs = scan_inputs_to_torch(enc.static, enc.carry, (steps_tg, want),
-                                                 self.device)
-        with _phases.track("device"):
-            _carry, _deficit, (top_idx, top_scores, valid, _placed) = kernels.chunk_scan(
-                enc.n_pad, static, carry, xs, chunk=chunk)
-            top_idx, top_scores, valid = to_numpy((top_idx, top_scores, valid))
+        deficit = np.zeros(enc.static[2].shape[0], np.int32)
+        with self._chunk_stream():
+            packed = kernels.pack_chunk_inputs(enc.n_pad, enc.static, enc.carry,
+                                               (steps_tg, want), deficit, chunk, self.device)
+            with _phases.track("device"):
+                out, out_layout = kernels.chunk_scan_packed(packed)
+                top_idx, top_scores, valid, _placed = from_device_packed(out, out_layout)
 
-        # per-TG FIFO of the picked (node, score) pairs, chunk order
-        picked: Dict[int, list] = {gi: [] for gi, _ in counts_by_tg}
-        for si in range(steps_tg.shape[0]):
-            vs = np.nonzero(valid[si])[0]
-            if vs.size:
-                picked[int(steps_tg[si])].append((top_idx[si, vs], top_scores[si, vs]))
+        # per-TG FIFO of the picked (node, score) pairs, chunk order: the
+        # valid slots in (step, slot) order
+        si, ki = np.nonzero(valid)
+        tg_of, nodes_all, scores_all = steps_tg[si], top_idx[si, ki], top_scores[si, ki]
         p = enc.p
         chosen = np.full(p, -1, np.int32)
         scores = np.zeros(p, np.float32)
-        for gi, lst in picked.items():
-            if not lst:
-                continue
-            nodes_q = np.concatenate([n for n, _ in lst])
-            scores_q = np.concatenate([sc for _, sc in lst])
+        for gi, _count in counts_by_tg:
+            mine = tg_of == gi
+            nodes_q, scores_q = nodes_all[mine], scores_all[mine]
             rows = np.nonzero(tg_idx_p == gi)[0]
             take = min(rows.size, nodes_q.size)
             chosen[rows[:take]] = nodes_q[:take]
@@ -568,6 +600,16 @@ class TorchPlacementEngine:
         skipped = np.zeros(p, bool)
         evict = np.zeros((p, 0), np.int32)
         return chosen, scores, pulls, skipped, evict
+
+    def _chunk_stream(self):
+        """A context that makes the calling thread's own stream current
+        (created at its first chunked eval); a no-op on the CPU."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        stream = getattr(self._streams, "stream", None)
+        if stream is None:
+            stream = self._streams.stream = torch.cuda.Stream(device=self.device)
+        return torch.cuda.stream(stream)
 
     def _maybe_sample_parity(self, enc: "EncodedEval", chosen, rate: float) -> None:
         """Sampled-parity spot check of the chunked tier

@@ -15,7 +15,8 @@ greedy sweep, the second pass and isqrt/coord_q of
 K4, ``engine.py:888``), counted as ``forced_eval`` / ``forced_eval_f32``.
 ``chunk_scan`` is the chunked throughput tier's top-K scan
 (``csrc/chunk_scan.cu``, K5, ``engine.py:3033``, float arm only),
-counted as ``chunk_scan``.
+counted as ``chunk_scan``: one thread-block cluster whose CTAs split the
+eval's node axis, laid out by ``chunk_plan``.
 
 Each source under ``csrc/`` is compiled at first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface (``_build/``,
@@ -44,9 +45,11 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import chunk as _chunk
+from . import convert
 from . import forced as _forced
 from . import step as _step
 from .preempt import C_MAX, GP_MAX
@@ -300,18 +303,144 @@ def launch_plan(B: int, N: int, D: int, G: int, S: int, V: int, DP: int, V2: int
                     region_bytes=sz, shared=shared, arena=arena)
 
 
-#: cudaOccupancyMaxActiveClusters by (cluster size, shared bytes, arm, card)
-_max_clusters_seen: Dict[Tuple[int, int, int, int], int] = {}
+# -- chunk_scan (K5): the launch plan ----------------------------------------
+
+#: the regions of a K5 CTA's dynamic shared memory, in ``ChunkPlan``
+#: order: per CTA (shared memory only: the slice's keys, its placed nodes
+#: of a step (at most min(per, K)), the histogram exchange's slots
+#: [2][CS], the deficit
+#: replica), then where there is room the winners' list (else a global
+#: scratch row) and staged copies of the task groups' inputs and of the
+#: slice of each per-node array (else the tensor itself)
+CHUNK_PER_CTA = ("keys", "chosen", "hist", "deficit")
+CHUNK_STAGED = ("list", "asks", "desired", "dh_job", "dh_tg", "spread_weights",
+                "spread_active", "sum_sw", "spread_desired", "used", "job_counts",
+                "tg_counts", "totals", "reserved", "feat", "spread_vids", "aff_score")
+CHUNK_REGIONS = CHUNK_PER_CTA + CHUNK_STAGED
+#: one CTA's radix histogram on the wire: 256 bins, the +NaN and valid
+#: key counts, two spare words (``kHistWords`` in chunk_scan.cu)
+CHUNK_HIST_BYTES = 260 * 4
+#: the most entries the winners' list keeps in shared memory (8 bytes
+#: each); past it, a global scratch row of K entries; and the least room
+#: the list gets below it: the radix passes end as soon as the keys at or
+#: above a pass's bin fit the list (``chunk_list_cap``)
+MAX_SMEM_PAIRS = 4096
+CHUNK_LIST_MIN = 1024
+#: the least nodes a K5 CTA gets when the plan picks the cluster size
+CHUNK_MIN_NODES_PER_CTA = 256
+
+
+@dataclass(frozen=True)
+class ChunkPlan:
+    """How a K5 launch splits the eval's node axis: ``cs`` CTAs (one
+    cluster), CTA r owning nodes ``slices[r]`` (``per`` a CTA), and the
+    byte offset in dynamic shared memory of each region that has one
+    (``shared``; ``smem_bytes`` in all)."""
+
+    cs: int
+    per: int
+    slices: Tuple[Tuple[int, int], ...]
+    smem_bytes: int
+    region_bytes: Dict[str, int]
+    shared: Dict[str, int]
+
+    @property
+    def list_in_smem(self) -> bool:
+        return "list" in self.shared
+
+    @property
+    def in_global(self) -> Tuple[str, ...]:
+        """The regions that did not fit in shared memory."""
+        return tuple(r for r in CHUNK_REGIONS if r not in self.shared)
+
+    def soff(self) -> List[int]:
+        """The kernel's ``soff``: the offset in shared memory, or -1."""
+        return [self.shared.get(r, -1) for r in CHUNK_REGIONS]
+
+
+def chunk_list_cap(K: int) -> int:
+    """The winners' list's room at chunk size K: at least
+    ``CHUNK_LIST_MIN`` entries up to ``MAX_SMEM_PAIRS`` (shared memory),
+    K past it (a global row)."""
+    return K if K > MAX_SMEM_PAIRS else min(max(K, CHUNK_LIST_MIN), MAX_SMEM_PAIRS)
+
+
+def chunk_plan(N: int, D: int, G: int, S: int, V: int, K: int, has_aff: bool = False,
+               cs: Optional[int] = None) -> ChunkPlan:
+    """The launch plan of a K5 launch over N nodes at chunk size K.
+    Without ``cs``, the largest power of two up to 16 with at least
+    ``CHUNK_MIN_NODES_PER_CTA`` nodes a CTA, raised while a CTA's keys,
+    its placed-node list and the exchange slots would not fit its shared
+    memory; a given ``cs`` is taken as it is. Each CTA owns the
+    contiguous slice ``[r * per, (r + 1) * per)`` cut at N. The per-CTA
+    regions must fit (else ValueError); the winners' list goes to shared
+    memory when K <= ``MAX_SMEM_PAIRS`` and it fits, then each staged
+    array that fits, in ``CHUNK_REGIONS`` order. The outputs do not
+    depend on the plan."""
+    budget = SMEM_PER_CTA - STATIC_SMEM_RESERVE
+    ceil = lambda a, b: -(-a // b)  # noqa: E731
+
+    def sizes(per: int, cs_: int) -> Dict[str, int]:
+        return {
+            "keys": per * 4, "chosen": min(per, K) * 4, "hist": 2 * cs_ * CHUNK_HIST_BYTES,
+            "deficit": G * 4, "list": chunk_list_cap(K) * 8 if K <= MAX_SMEM_PAIRS else 0,
+            "asks": G * D * 4, "desired": G * 4, "dh_job": G, "dh_tg": G,
+            "spread_weights": G * S * 4, "spread_active": G * S, "sum_sw": G * 4,
+            "spread_desired": G * S * V * 4, "used": per * D * 4, "job_counts": per * 4,
+            "tg_counts": G * per * 4, "totals": per * D * 4, "reserved": per * D * 4,
+            "feat": G * per, "spread_vids": G * S * per * 4,
+            "aff_score": G * per * 4 if has_aff else 0,
+        }
+
+    def per_cta(cs_: int) -> int:
+        sz = sizes(ceil(N, cs_), cs_)
+        return sum(_align16(sz[r]) for r in CHUNK_PER_CTA)
+
+    if cs is None:
+        cs = 1
+        while cs * 2 <= MAX_CLUSTER and ceil(N, cs * 2) >= CHUNK_MIN_NODES_PER_CTA:
+            cs *= 2
+        while cs < MAX_CLUSTER and per_cta(cs) > budget:
+            cs *= 2
+    elif cs not in (1, 2, 4, 8, 16):
+        raise ValueError(f"chunk_scan: cluster size {cs} is not a power of two up to "
+                         f"{MAX_CLUSTER}")
+    per = ceil(N, cs)
+    sz = sizes(per, cs)
+    shared: Dict[str, int] = {}
+    cursor = 0
+    for r in CHUNK_PER_CTA:
+        shared[r] = cursor
+        cursor += _align16(sz[r])
+    if cursor > budget:
+        raise ValueError(
+            f"chunk_scan: at CS={cs} a CTA's {per} keys and exchange slots need {cursor} bytes "
+            f"of shared memory (the plan has {budget}); take a larger CS")
+    for r in CHUNK_STAGED:
+        if r == "list" and K > MAX_SMEM_PAIRS:
+            continue
+        if cursor + _align16(sz[r]) <= budget:
+            shared[r] = cursor
+            cursor += _align16(sz[r])
+    slices = tuple((min(r * per, N), min(r * per + per, N)) for r in range(cs))
+    return ChunkPlan(cs=cs, per=per, slices=slices, smem_bytes=cursor, region_bytes=sz,
+                     shared=shared)
+
+
+#: cudaOccupancyMaxActiveClusters by (kernel, cluster size, shared bytes, card)
+_max_clusters_seen: Dict[Tuple[str, int, int, int], int] = {}
 _occupancy_lock = threading.Lock()
 
 
 def _plan(m: Dict[str, int], int_arm: bool, cs: Optional[int], dev: torch.device) -> ScanPlan:
-    """``launch_plan`` of a checked launch. On the card the plan's
-    clusters must be resident together: where
+    """``launch_plan`` of a checked launch. On the card, where
     ``cudaOccupancyMaxActiveClusters`` reads fewer than the batch's B
     clusters (0 for a cluster of 16 the card cannot co-schedule at all),
-    the plan drops to the next cluster size down; a forced ``cs`` raises
-    only where it reads 0."""
+    the plan drops to the next cluster size down, but never below the
+    smallest one whose per-CTA regions fit: there the hardware runs the
+    B clusters in waves (each eval's cluster is independent; nothing
+    waits on another cluster). A size the card cannot co-schedule even
+    once is always dropped; a forced ``cs`` raises only there."""
     dims = dict(B=m["B"], N=m["N"], D=m["D"], G=m["G"], S=m["S"], V=m["V"], DP=m["DP"],
                 V2=m["V2"], C=m["C"], int_arm=int_arm, has_reserved=bool(m["has_reserved"]),
                 has_aff=bool(m["has_aff"]))
@@ -323,10 +452,30 @@ def _plan(m: Dict[str, int], int_arm: bool, cs: Optional[int], dev: torch.device
             raise RuntimeError(f"place_scan: the card cannot co-schedule a cluster of {cs} "
                                f"CTAs with {plan.smem_bytes} bytes of shared memory each")
         return plan
-    while plan.cs > 1 and max_active_clusters(plan.cs, plan.smem_bytes, int_arm,
-                                              dev) < m["B"]:
-        plan = launch_plan(**dims, max_cs=plan.cs // 2)
+    while plan.cs > 1:
+        resident = max_active_clusters(plan.cs, plan.smem_bytes, int_arm, dev)
+        if resident >= m["B"]:
+            break
+        try:
+            smaller = launch_plan(**dims, max_cs=plan.cs // 2)
+        except ValueError:
+            smaller = None  # a smaller cluster's slices do not fit a CTA
+        if smaller is None:
+            if resident < 1:
+                raise RuntimeError(
+                    f"place_scan: the card cannot co-schedule a cluster of {plan.cs} CTAs "
+                    f"with {plan.smem_bytes} bytes of shared memory each, and no smaller "
+                    f"cluster holds the slice")
+            break  # the clusters run in waves
+        plan = smaller
     return plan
+
+
+def scan_waves(plan: ScanPlan, B: int, int_arm: bool, device=None) -> int:
+    """How many waves B clusters of ``plan`` take on the card: B over
+    the clusters ``cudaOccupancyMaxActiveClusters`` holds at once."""
+    resident = max_active_clusters(plan.cs, plan.smem_bytes, int_arm, device)
+    return -(-B // max(resident, 1))
 
 
 def scan_plan(static_b, carry_b, xs_b, cs: Optional[int] = None) -> ScanPlan:
@@ -384,12 +533,14 @@ class ForcedArgs(ctypes.Structure):
                 + [(f, ctypes.c_void_p) for f in _FORCED_PTR_FIELDS])
 
 
-_CHUNK_INT_FIELDS = ("N", "D", "G", "S", "V", "T", "K", "has_aff")
+_CHUNK_INT_FIELDS = ("N", "D", "G", "S", "V", "T", "K", "has_aff", "CS", "per", "smem_bytes",
+                     "list_cap")
 _CHUNK_PTR_FIELDS = (
     "totals", "reserved", "asks", "feat", "aff_score", "desired", "dh_job", "dh_tg",
     "spread_vids", "spread_desired", "spread_weights", "spread_active",
     "sum_spread_weights", "n_real", "used", "tg_counts", "job_counts", "spread_counts",
-    "deficit", "tg_idx", "want", "top_idx", "top_scores", "valid", "placed", "keys",
+    "deficit", "tg_idx", "want", "top_idx", "top_scores", "valid", "placed", "pairs",
+    "sections",
 )
 
 
@@ -397,6 +548,7 @@ class ChunkArgs(ctypes.Structure):
     """Mirror of ``struct ChunkArgs`` in chunk_scan.cu."""
 
     _fields_ = ([(f, ctypes.c_int) for f in _CHUNK_INT_FIELDS]
+                + [("soff", ctypes.c_int * len(CHUNK_REGIONS))]
                 + [(f, ctypes.c_void_p) for f in _CHUNK_PTR_FIELDS])
 
 
@@ -407,6 +559,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             fn = getattr(lib, entry)
             fn.argtypes = [ctypes.POINTER(args_t), ctypes.c_void_p]
             fn.restype = ctypes.c_int
+    if name == "chunk_scan":
+        lib.chunk_scan_max_clusters.argtypes = [ctypes.c_int] * 2
+        lib.chunk_scan_max_clusters.restype = ctypes.c_int
     if name == "place_scan":
         lib.place_scan_max_clusters.argtypes = [ctypes.c_int] * 3
         lib.place_scan_max_clusters.restype = ctypes.c_int
@@ -430,12 +585,20 @@ I32, I64, U8, BOOL, F32 = torch.int32, torch.int64, torch.uint8, torch.bool, tor
 _MAX_SPREADS = 1024
 
 
+def _dtype(t) -> torch.dtype:
+    """A tensor's dtype, or the tensor dtype a numpy array becomes."""
+    return convert._TORCH_OF.get(t.dtype, t.dtype) if isinstance(t, np.ndarray) else t.dtype
+
+
 def _shape_check(name, t, dtype, shape, who: str = "place_scan") -> None:
-    if t.dtype != dtype:
+    """Check a tensor's dtype, shape and layout; a numpy array (which is
+    copied into a packed buffer, so need not be contiguous) by the
+    tensor dtype it becomes."""
+    if _dtype(t) != dtype:
         raise TypeError(f"{who}: {name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if not isinstance(t, np.ndarray) and not t.is_contiguous():
         raise ValueError(f"{who}: {name} is not contiguous")
 
 
@@ -651,20 +814,36 @@ def place_scan_sections(static_b, carry_b, xs_b, cs: Optional[int] = None):
     return _launch_place_scan(static_b, carry_b, xs_b, plan.cs, cycles), cycles
 
 
-def max_active_clusters(cs: int, smem_bytes: int, int_arm: bool, device=None) -> int:
-    """``cudaOccupancyMaxActiveClusters`` of the scan kernel's arm at this
-    cluster size and dynamic shared memory on the card (0: none)."""
+def _max_clusters(kernel: str, cs: int, smem_bytes: int, device) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of ``kernel`` (``place_scan``,
+    ``place_scan_f32`` or ``chunk_scan``) at this cluster size and
+    dynamic shared memory on the card (0: none), asked once a card."""
     dev = torch.device("cuda" if device is None else device)
-    key = (cs, smem_bytes, int(not int_arm), dev.index or 0)
+    key = (kernel, cs, smem_bytes, dev.index or 0)
     with _occupancy_lock:
         n = _max_clusters_seen.get(key)
     if n is None:
-        lib = _lib("place_scan")
         with torch.cuda.device(dev):
-            n = lib.place_scan_max_clusters(cs, smem_bytes, int(not int_arm))
+            if kernel == "chunk_scan":
+                n = _lib("chunk_scan").chunk_scan_max_clusters(cs, smem_bytes)
+            else:
+                n = _lib("place_scan").place_scan_max_clusters(cs, smem_bytes,
+                                                               int(kernel == "place_scan_f32"))
         with _occupancy_lock:
             _max_clusters_seen[key] = n
     return n
+
+
+def max_active_clusters(cs: int, smem_bytes: int, int_arm: bool, device=None) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the scan kernel's arm at this
+    cluster size and dynamic shared memory on the card (0: none)."""
+    return _max_clusters("place_scan" if int_arm else "place_scan_f32", cs, smem_bytes, device)
+
+
+def chunk_max_active_clusters(cs: int, smem_bytes: int, device=None) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the chunk kernel (K5) at this
+    cluster size and dynamic shared memory on the card (0: none)."""
+    return _max_clusters("chunk_scan", cs, smem_bytes, device)
 
 
 def k8_sweep_inputs(seed: int = 0, n_random: int = 1 << 20):
@@ -913,24 +1092,26 @@ def place_scan_batched_work(static_b, carry_b, xs_b, skipped_b=None,
 
 # -- chunk_scan (K5) ----------------------------------------------------------
 
-#: the kernel sorts the K winners in shared memory: at most 4,096 (32 KB)
-MAX_CHUNK_K = 4096
+#: the parts of a step that ``chunk_scan_sections`` times: the score pass
+#: (with the first radix pass's histogram), the cluster-wide radix select,
+#: the winners' exchange with the ties and the order (outputs written),
+#: the carry update with the step's closing barrier
+CHUNK_SECTIONS = ("score", "select", "order", "carry")
 
 
 def _check_chunk(n_pad, static, carry, xs, deficit, chunk) -> Dict[str, int]:
     """Validate the arrays the chunk kernel reads and writes; return its
     sizes."""
     totals, reserved, asks = static[0], static[1], static[2]
-    if totals.dtype != F32:
+    if _dtype(totals) != F32:
         raise NotImplementedError(
             f"chunk_scan: the chunked tier runs in the float arm only (totals dtype "
             f"{totals.dtype})")
     n, d = totals.shape
     if n != n_pad:
         raise ValueError(f"chunk_scan: n_pad {n_pad} != node axis {n}")
-    if not 1 <= chunk <= min(n, MAX_CHUNK_K):
-        raise ValueError(f"chunk_scan: chunk size {chunk} outside [1, min(n_pad={n}, "
-                         f"{MAX_CHUNK_K})]")
+    if not 1 <= chunk <= n:
+        raise ValueError(f"chunk_scan: chunk size {chunk} outside [1, n_pad={n}]")
     if d < 2:
         raise ValueError("chunk_scan: needs the cpu and memory dims")
     g = asks.shape[0]
@@ -961,29 +1142,68 @@ def _check_chunk(n_pad, static, carry, xs, deficit, chunk) -> Dict[str, int]:
             "has_aff": int(ga > 0)}
 
 
-def _launch_chunk_scan(static, carry, xs, deficit, m):
-    dev = static[0].device
-    T, K, N = m["T"], m["K"], m["N"]
-    top_idx = torch.empty((T, K), dtype=I32, device=dev)
-    top_scores = torch.empty((T, K), dtype=F32, device=dev)
-    valid = torch.empty((T, K), dtype=BOOL, device=dev)
-    placed = torch.empty(T, dtype=I32, device=dev)
-    if T == 0:
-        return top_idx, top_scores, valid, placed
-    keys = torch.empty(N, dtype=I32, device=dev)  # uint32 keys
-    tensors = {
-        "totals": static[0], "reserved": static[1], "asks": static[2], "feat": static[3],
-        "aff_score": static[4], "desired": static[5], "dh_job": static[6],
-        "dh_tg": static[7], "spread_vids": static[9], "spread_desired": static[10],
-        "spread_weights": static[11], "spread_active": static[13],
-        "sum_spread_weights": static[14], "n_real": static[15],
-        "used": carry[0], "tg_counts": carry[1], "job_counts": carry[2],
-        "spread_counts": carry[3], "deficit": deficit, "tg_idx": xs[0], "want": xs[1],
-        "top_idx": top_idx, "top_scores": top_scores, "valid": valid, "placed": placed,
-        "keys": keys,
-    }
+def _chunk_launch_plan(m: Dict[str, int], cs: Optional[int], dev: torch.device) -> ChunkPlan:
+    """``chunk_plan`` of a checked launch. On the card, where
+    ``cudaOccupancyMaxActiveClusters`` reads 0 for the plan's cluster
+    (the card cannot co-schedule that many CTAs at that shared memory),
+    the plan drops to the next cluster size down, as the scan's ``_plan``
+    does; it raises where a smaller cluster's slice does not fit a CTA,
+    and for a forced ``cs`` at once."""
+    dims = (m["N"], m["D"], m["G"], m["S"], m["V"], m["K"])
+    plan = chunk_plan(*dims, has_aff=bool(m["has_aff"]), cs=cs)
+    if dev.type != "cuda":
+        return plan
+    while chunk_max_active_clusters(plan.cs, plan.smem_bytes, dev) < 1:
+        why = (f"chunk_scan: the card cannot co-schedule a cluster of {plan.cs} CTAs with "
+               f"{plan.smem_bytes} bytes of shared memory each")
+        if cs is not None or plan.cs == 1:
+            raise RuntimeError(why)
+        try:
+            plan = chunk_plan(*dims, has_aff=bool(m["has_aff"]), cs=plan.cs // 2)
+        except ValueError as e:
+            raise RuntimeError(f"{why}, and no smaller cluster holds the slice") from e
+    return plan
+
+
+def chunk_scan_plan(static, chunk: int, cs: Optional[int] = None) -> ChunkPlan:
+    """The plan ``chunk_scan`` launches an eval of these static arrays
+    with at chunk size ``chunk`` (on the card, after the occupancy
+    check of ``_chunk_launch_plan``)."""
+    n, d = static[0].shape
+    m = {"N": n, "D": d, "G": static[2].shape[0], "S": static[10].shape[1],
+         "V": static[10].shape[2], "K": chunk, "has_aff": int(static[4].shape[0] > 0)}
+    dev = static[0].device if isinstance(static[0], torch.Tensor) else torch.device("cpu")
+    return _chunk_launch_plan(m, cs, dev)
+
+
+def _chunk_out_layout(T: int, K: int, plan: ChunkPlan):
+    """The byte layout of a K5 launch's output buffer: top_idx,
+    top_scores, valid, placed, then (where the plan keeps the winners'
+    list out of shared memory) the list's scratch row. Returns the
+    outputs' layout (``convert.Layout``), the scratch offset (or None)
+    and the buffer's size."""
+    layout, off = [], 0
+    for dt, shape in ((np.int32, (T, K)), (np.float32, (T, K)), (np.bool_, (T, K)),
+                      (np.int32, (T,))):
+        off = -(-off // 16) * 16
+        layout.append((off, np.dtype(dt), shape))
+        off += T * (K if len(shape) == 2 else 1) * np.dtype(dt).itemsize
+    pairs = None
+    if not plan.list_in_smem:
+        pairs = -(-off // 16) * 16
+        off = pairs + chunk_list_cap(K) * 8
+    return layout, pairs, off
+
+
+def _launch_chunk(ptrs: Dict[str, int], m: Dict[str, int], dev: torch.device,
+                  plan: ChunkPlan) -> None:
+    """Launch K5 on the current stream with these pointers (``ptrs``
+    holds every field of ``_CHUNK_PTR_FIELDS``) and count it."""
+    m = dict(m, CS=plan.cs, per=plan.per, smem_bytes=plan.smem_bytes,
+             list_cap=chunk_list_cap(m["K"]))
     args = ChunkArgs(**{k: m[k] for k in _CHUNK_INT_FIELDS},
-                     **{k: tensors[k].data_ptr() for k in _CHUNK_PTR_FIELDS})
+                     soff=(ctypes.c_int * len(CHUNK_REGIONS))(*plan.soff()),
+                     **{k: ptrs[k] for k in _CHUNK_PTR_FIELDS})
     source, entry = KERNELS["chunk_scan"]
     lib = _lib(source)
     with torch.cuda.device(dev):
@@ -994,31 +1214,162 @@ def _launch_chunk_scan(static, carry, xs, deficit, m):
             f"chunk_scan launch failed: {lib.chunk_scan_error_string(err).decode()}")
     with _count_lock:
         LAUNCHES["chunk_scan"] += 1
+
+
+#: the kernel's input arrays by name -> (part, index) of (static, carry, xs)
+_CHUNK_INPUTS = {
+    "totals": (0, 0), "reserved": (0, 1), "asks": (0, 2), "feat": (0, 3),
+    "aff_score": (0, 4), "desired": (0, 5), "dh_job": (0, 6), "dh_tg": (0, 7),
+    "spread_vids": (0, 9), "spread_desired": (0, 10), "spread_weights": (0, 11),
+    "spread_active": (0, 13), "sum_spread_weights": (0, 14), "n_real": (0, 15),
+    "used": (1, 0), "tg_counts": (1, 1), "job_counts": (1, 2), "spread_counts": (1, 3),
+    "tg_idx": (2, 0), "want": (2, 1),
+}
+
+
+def _launch_chunk_scan(static, carry, xs, deficit, m, cs=None, sections=None):
+    dev = static[0].device
+    T, K = m["T"], m["K"]
+    top_idx = torch.empty((T, K), dtype=I32, device=dev)
+    top_scores = torch.empty((T, K), dtype=F32, device=dev)
+    valid = torch.empty((T, K), dtype=BOOL, device=dev)
+    placed = torch.empty(T, dtype=I32, device=dev)
+    if T == 0:
+        return top_idx, top_scores, valid, placed
+    plan = chunk_scan_plan(static, K, cs)
+    # the winners' list past shared memory: a global scratch row
+    pairs = None if plan.list_in_smem else torch.empty(chunk_list_cap(K), dtype=I64, device=dev)
+    parts = (static, carry, xs)
+    ptrs = {k: parts[a][i].data_ptr() for k, (a, i) in _CHUNK_INPUTS.items()}
+    ptrs.update(deficit=deficit.data_ptr(), top_idx=top_idx.data_ptr(),
+                top_scores=top_scores.data_ptr(), valid=valid.data_ptr(),
+                placed=placed.data_ptr(), pairs=0 if pairs is None else pairs.data_ptr(),
+                sections=0 if sections is None else sections.data_ptr())
+    _launch_chunk(ptrs, m, dev, plan)
     return top_idx, top_scores, valid, placed
 
 
-def chunk_scan(n_pad: int, static, carry, xs, deficit=None, chunk: int = _chunk.CHUNK_K):
+#: where one eval's K5 inputs lie among the arrays of a packed buffer
+#: (``pack_chunk_inputs``): the float arm's 26 static arrays, its 12 carry
+#: arrays, the steps' ``tg_idx`` and ``want``, and the deficit
+CHUNK_STATIC, CHUNK_CARRY, CHUNK_XS, CHUNK_DEFICIT = slice(0, 26), slice(26, 38), slice(38, 40), 40
+
+
+@dataclass(frozen=True)
+class PackedChunk:
+    """One eval's K5 inputs in one buffer (``pack_chunk_inputs``):
+    ``buf`` (uint8, on the device), the ``layout`` of its arrays
+    (``convert.Layout``, in ``CHUNK_*`` order) and the sizes
+    ``_check_chunk`` found (``dims``, chunk size ``K`` included)."""
+
+    n_pad: int
+    buf: torch.Tensor
+    layout: convert.Layout
+    dims: Dict[str, int]
+
+    def parts(self):
+        """``(static, carry, xs, deficit)`` as tensor views into ``buf``:
+        a launch updates the carry and the deficit in place."""
+        v = convert.unpack(self.buf, self.layout)
+        return v[CHUNK_STATIC], v[CHUNK_CARRY], v[CHUNK_XS], v[CHUNK_DEFICIT]
+
+
+def pack_chunk_inputs(n_pad: int, static, carry, xs, deficit, chunk: int,
+                      device: convert.DeviceLike = "cuda") -> PackedChunk:
+    """Check one eval's numpy K5 inputs (the float arm's ``static`` and
+    ``carry``, ``xs = (tg_idx, want)``, the int32 ``deficit``) at chunk
+    size ``chunk`` and move them to ``device`` as one packed buffer
+    (``convert.to_device_packed``: on CUDA one copy from pinned host
+    memory, on the current stream)."""
+    if (len(static), len(carry), len(xs)) != (26, 12, 2):
+        raise ValueError(f"chunk_scan: expected 26 static, 12 carry and 2 step arrays, got "
+                         f"{len(static)}, {len(carry)} and {len(xs)}")
+    arrays = tuple(np.asarray(a) for a in (*static, *carry, *xs, deficit))
+    m = _check_chunk(n_pad, arrays[CHUNK_STATIC], arrays[CHUNK_CARRY], arrays[CHUNK_XS],
+                     arrays[CHUNK_DEFICIT], chunk)
+    buf, layout = convert.to_device_packed(arrays, device)
+    return PackedChunk(n_pad, buf, layout, m)
+
+
+def chunk_scan_packed(packed: PackedChunk, cs: Optional[int] = None):
+    """K5 on a packed buffer (``pack_chunk_inputs``). The kernel reads the
+    inputs and updates the carry and deficit in place through their
+    offsets, with no tensor made per array (each tensor operation lets
+    go of the GIL, which the server's worker threads contend for).
+    Returns ``(out, out_layout)``: one buffer on the same device holding
+    ``top_idx``, ``top_scores``, ``valid`` and ``placed``
+    (``convert.from_device_packed`` brings them back with one copy). On
+    the CPU the plain version runs on views of the buffer."""
+    dev, m = packed.buf.device, packed.dims
+    if dev.type == "cpu":
+        static, carry, xs, deficit = packed.parts()
+        _c, _d, ys = chunk_scan(packed.n_pad, static, carry, xs, deficit, chunk=m["K"], cs=cs)
+        return convert.pack([y.numpy() for y in ys])
+    if dev.type != "cuda":
+        raise ValueError(f"chunk_scan_packed: unsupported device {dev}")
+    plan = _chunk_launch_plan(m, cs, dev)
+    out_layout, pairs, nbytes = _chunk_out_layout(m["T"], m["K"], plan)
+    out = torch.empty(max(nbytes, 1), dtype=U8, device=dev)
+    if m["T"] == 0:
+        return out, out_layout
+    base, obase, layout = packed.buf.data_ptr(), out.data_ptr(), packed.layout
+    first = (CHUNK_STATIC.start, CHUNK_CARRY.start, CHUNK_XS.start)
+    ptrs = {k: base + layout[first[a] + i][0] for k, (a, i) in _CHUNK_INPUTS.items()}
+    ptrs.update(deficit=base + layout[CHUNK_DEFICIT][0],
+                **{k: obase + o for k, (o, _dt, _s) in
+                   zip(("top_idx", "top_scores", "valid", "placed"), out_layout)},
+                pairs=0 if pairs is None else obase + pairs, sections=0)
+    _launch_chunk(ptrs, m, dev, plan)
+    return out, out_layout
+
+
+def chunk_scan(n_pad: int, static, carry, xs, deficit=None, chunk: int = _chunk.CHUNK_K,
+               cs: Optional[int] = None):
     """K5: one eval's chunked top-K scan, the JAX ``chunk_scan`` contract
     ``(n_pad, static, carry, xs, deficit=None) -> (carry, deficit,
     (top_idx, top_scores, valid, placed))`` with ``xs = (tg_idx, want)``
-    and chunk size ``chunk`` (K, ``1 <= K <= min(n_pad, 4096)``). The
-    carry tensors and ``deficit`` (zeros when None) are updated in place
-    and returned, on the CPU as on CUDA; ``static`` is the float arm's.
-    With no steps nothing is launched."""
+    and chunk size ``chunk`` (K, ``1 <= K <= n_pad``). The carry tensors
+    and ``deficit`` (zeros when None) are updated in place and returned,
+    on the CPU as on CUDA; ``static`` is the float arm's. ``cs`` forces
+    the plan's cluster size (``chunk_plan``; tests, chip_smoke.py): the
+    outputs do not depend on it, and on the CPU it is only checked. With
+    no steps nothing is launched."""
     extra = () if deficit is None else (deficit,)
     dev = _device_of((*static, *carry, *xs, *extra))
     m = _check_chunk(n_pad, static, carry, xs, deficit, chunk)
     if deficit is None:
         deficit = torch.zeros(m["G"], dtype=I32, device=dev)
     if dev.type == "cuda":
-        return carry, deficit, _launch_chunk_scan(static, carry, xs, deficit, m)
+        return carry, deficit, _launch_chunk_scan(static, carry, xs, deficit, m, cs)
     if dev.type != "cpu":
         raise ValueError(f"chunk_scan: unsupported device {dev}")
+    if cs is not None:
+        chunk_scan_plan(static, chunk, cs)
     new_carry, new_deficit, ys = _chunk.chunk_scan(n_pad, static, carry, xs, deficit, chunk)
     for dst, src in zip(carry, new_carry):
         dst.copy_(src)
     deficit.copy_(new_deficit)
     return carry, deficit, ys
+
+
+def chunk_scan_sections(n_pad: int, static, carry, xs, deficit=None,
+                        chunk: int = _chunk.CHUNK_K, cs: Optional[int] = None):
+    """A ``chunk_scan`` launch on the card with section timing: returns
+    its ``(carry, deficit, ys)`` and the clock64 cycles thread 0 of each
+    CTA spent in each part of the steps (``CHUNK_SECTIONS``), ``[CS,
+    len(CHUNK_SECTIONS)]`` int64. A diagnostic: the launch is counted
+    like any other."""
+    extra = () if deficit is None else (deficit,)
+    dev = _device_of((*static, *carry, *xs, *extra))
+    if dev.type != "cuda":
+        raise ValueError("chunk_scan_sections: times the kernel on the card only")
+    m = _check_chunk(n_pad, static, carry, xs, deficit, chunk)
+    if deficit is None:
+        deficit = torch.zeros(m["G"], dtype=I32, device=dev)
+    plan = chunk_scan_plan(static, chunk, cs)
+    cycles = torch.zeros((plan.cs, len(CHUNK_SECTIONS)), dtype=I64, device=dev)
+    ys = _launch_chunk_scan(static, carry, xs, deficit, m, plan.cs, cycles)
+    return (carry, deficit, ys), cycles
 
 
 #: operations per node and step of the chunk kernel's score pass (fit,

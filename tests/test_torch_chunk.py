@@ -26,6 +26,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 import nomad_tpu.tpu.engine as jengine
 from nomad_tpu.tpu.engine import EncodedEval as JaxEncodedEval
@@ -123,6 +124,26 @@ def test_plain_chunk_scan_bulk_to_tail_deficit_handoff(jax_scans, variant):
     _check(ref_t, got_t, "tail")
     if variant == "tight":
         assert int(ref_b[1].sum()) > 0, "the bulk left no deficit to hand over"
+
+
+@pytest.mark.parametrize("variant,n_nodes,k", [
+    ("c1m", 8192, 5000),
+    ("open", 8192, 5000),
+    ("spread_affinity", 1024, "n_pad"),
+    ("tight", 640, "n_pad"),
+])
+def test_plain_chunk_scan_past_4096_and_at_n_pad_matches_jax(jax_scans, variant, n_nodes, k):
+    """Any chunk size up to n_pad, as ``lax.top_k`` takes it: K = 5,000
+    on 8,192 nodes (the kernel's shared-memory list holds 4,096) and
+    K = n_pad, through ``kernels.chunk_scan`` against
+    ``_build_chunk_scan``."""
+    n_pad, static, carry = example_chunk_variant(variant, n_nodes=n_nodes, n_tgs=2, seed=11)
+    k = n_pad if k == "n_pad" else k
+    xs = chunk.chunk_schedule([(0, k + 37), (1, k // 2)], k, retry_rounds=1)
+    ref = _jax_chunk(jax_scans(k), n_pad, static, carry, xs)
+    got = _port_chunk(n_pad, static, carry, xs, k)
+    _check(ref, got, f"{variant} K={k}")
+    assert int(got[2][3].sum()) > 0
 
 
 def test_plain_chunk_scan_zero_affinity_axis_matches_jax(jax_scans):
@@ -347,6 +368,100 @@ def test_run_chunked_places_all_in_parity_result_shape(engines, chunk_k):
     for a, b in zip(got, ref):
         assert a.dtype == b.dtype and a.shape == b.shape
     assert np.array_equal(pulls, ref[2]) and np.array_equal(skipped, ref[3])
+
+
+@pytest.mark.parametrize("n_nodes,p,chunk_k", [(8192, 9000, 5000), (600, 900, 100_000)])
+def test_run_chunked_any_chunk_k_equals_jax(engines, n_nodes, p, chunk_k):
+    """``chunk_k`` past 4,096, and past n_pad (clamped to it), through
+    ``run_chunked``: the JAX engine's per-placement result."""
+    enc, jenc = _encs(n_nodes=n_nodes, p=p, seed=6)
+    got = engines[0].run_chunked(enc, chunk_k=chunk_k)
+    ref = engines[1].run_chunked(jenc, chunk_k=chunk_k)
+    assert (got[0] >= 0).sum() > 0
+    assert np.array_equal(got[0], ref[0])
+    assert np.abs(got[1] - ref[1]).max() <= parity.FLOAT_SCORE_TOL
+    for a, b in zip(got[2:], ref[2:]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_packed_copy_round_trips_every_array_of_an_encode():
+    """One buffer, 16-byte aligned slots, each view of the encode's
+    dtype and shape and equal to it, none aliasing the encode, and the
+    numpy arrays back from it; ``run_chunked`` moves its inputs with one
+    packed copy, never ``scan_inputs_to_torch``."""
+    enc, _ = _encs(p=50)
+    steps = chunk.chunk_schedule([(0, 30), (1, 20)], 16, retry_rounds=1)
+    deficit = np.zeros(2, np.int32)
+    arrays = (*enc.static, *enc.carry, *steps, deficit)
+    packed = kernels.pack_chunk_inputs(enc.n_pad, enc.static, enc.carry, steps, deficit, 16,
+                                       "cpu")
+    buf, layout = packed.buf, packed.layout
+    views = convert.unpack(buf, layout)
+    assert len(views) == len(arrays) == 41 and buf.dtype == torch.uint8 and buf.dim() == 1
+    assert packed.dims["K"] == 16 and packed.dims["T"] == steps[0].shape[0]
+    parts = packed.parts()
+    assert [len(parts[0]), len(parts[1]), len(parts[2])] == [26, 12, 2]
+    assert parts[3].data_ptr() == views[kernels.CHUNK_DEFICIT].data_ptr()
+    base = buf.data_ptr()
+    for (off, _dt, _shape), a, t in zip(layout, arrays, views):
+        a = np.asarray(a)
+        assert off % 16 == 0 and (t.numel() == 0 or t.data_ptr() == base + off)
+        assert t.dtype == convert._TORCH_OF[a.dtype] and tuple(t.shape) == a.shape
+        assert np.array_equal(t.numpy(), a)
+    assert any(a.ndim == 0 for a in map(np.asarray, arrays))
+    assert any(np.asarray(a).dtype == np.bool_ for a in arrays)
+    parts[1][0].add_(1.0)  # the carry's used: the encode stays as it was
+    assert not np.array_equal(parts[1][0].numpy(), enc.carry[0])
+    back = convert.from_device_packed(buf, layout)
+    for a, b, t in zip(arrays, back, views):
+        assert b.dtype == np.asarray(a).dtype and b.shape == np.asarray(a).shape
+        assert np.array_equal(b, t.numpy())
+
+    calls = {"packed": 0, "loose": 0}
+    orig_packed, orig_loose = convert.to_device_packed, tengine.scan_inputs_to_torch
+
+    def packed_copy(*args, **kwargs):
+        calls["packed"] += 1
+        return orig_packed(*args, **kwargs)
+
+    def loose(*args, **kwargs):
+        calls["loose"] += 1
+        return orig_loose(*args, **kwargs)
+
+    convert.to_device_packed, tengine.scan_inputs_to_torch = packed_copy, loose
+    try:
+        TorchPlacementEngine("cpu").run_chunked(enc, chunk_k=16)
+    finally:
+        convert.to_device_packed, tengine.scan_inputs_to_torch = orig_packed, orig_loose
+    assert calls == {"packed": 1, "loose": 0}
+
+
+@pytest.mark.parametrize("variant", ["spread_affinity", "tight"])
+def test_chunk_scan_packed_equals_chunk_scan(variant):
+    """The packed entry (the kernel reads the buffer through its layout)
+    gives ``chunk_scan``'s outputs, and updates the buffer's carry and
+    deficit in place as ``chunk_scan`` updates its tensors; the packing
+    checks the inputs as ``chunk_scan`` does."""
+    n_pad, static, carry = example_chunk_variant(variant, n_nodes=300, n_tgs=2, seed=8)
+    xs = chunk.chunk_schedule([(0, 140), (1, 90)], 32, retry_rounds=2)
+    deficit = np.zeros(2, np.int32)
+    packed = kernels.pack_chunk_inputs(n_pad, static, carry, xs, deficit, 32, "cpu")
+    out, out_layout = kernels.chunk_scan_packed(packed)
+    got = convert.from_device_packed(out, out_layout)
+    st, ca, x = convert.scan_inputs_to_torch(static, carry, xs, "cpu")
+    ref_c, ref_d, ref_y = kernels.chunk_scan(n_pad, st, ca, x, chunk=32)
+    for a, b in zip(got, convert.to_numpy(ref_y)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    _s, p_carry, _x, p_deficit = packed.parts()
+    for a, b in zip(p_carry, ref_c):
+        assert torch.equal(a, b)
+    assert torch.equal(p_deficit, ref_d)
+    with pytest.raises(ValueError, match="26 static"):
+        kernels.pack_chunk_inputs(n_pad, static[:25], carry, xs, deficit, 32, "cpu")
+    with pytest.raises(TypeError, match="deficit"):
+        kernels.pack_chunk_inputs(n_pad, static, carry, xs, deficit.astype(np.int64), 32, "cpu")
+    with pytest.raises(ValueError, match="chunk size"):
+        kernels.pack_chunk_inputs(n_pad, static, carry, xs, deficit, n_pad + 1, "cpu")
 
 
 def test_run_chunked_short_capacity_leaves_rows_unfilled(engines):

@@ -359,3 +359,123 @@ def test_k8_sweep_equals_plain(cuda):
     assert torch.equal(isq, preempt.isqrt_t(n))
     assert torch.equal(cq, preempt.coord_q_t(needed, res))
     assert torch.equal(fq, torch.div(num, den, rounding_mode="floor"))
+
+
+# -- K5: the chunk kernel's cluster at every cluster size ----------------------
+
+
+@pytest.mark.parametrize("variant,n_nodes,k,counts", [
+    ("open", 700, 16, [90, 70]),
+    ("c1m", 2000, 1024, [3000, 2500]),
+    ("spread_affinity", 700, 128, [300, 250]),
+    ("distinct_hosts", 300, 64, [200, 200]),
+    ("tight", 900, 128, [400, 300]),
+    ("open", 6, 4, [10, 5]),                   # CTAs that own no node
+    ("c1m", 8192, 5000, [9000, 6000]),        # past the shared-memory list
+    ("spread_affinity", 1024, "n_pad", [1500, 900]),
+    ("open", 32768, "n_pad", [40000]),         # K = n_pad at n_pad >= 32,768
+])
+def test_chunk_kernel_equals_plain_at_every_cluster_size(cuda, variant, n_nodes, k, counts):
+    """K5 at every cluster size the plan allows (a smaller one is refused
+    by the plan), each against the plain version on the card and bit for
+    bit against the others; C1M's mock nodes tie exactly, so the
+    threshold's ties straddle the slices."""
+    from nomad_tpu_torch.tpu import chunk
+
+    n_pad = example_chunk_variant_n_pad(variant, n_nodes)
+    k = n_pad if k == "n_pad" else k
+    n_pad, (s, c, x) = _chunk_case(cuda, variant, n_nodes, k, counts, retry_rounds=1)
+    plain = chunk.chunk_scan(n_pad, s, c, x, chunk=k)
+    first = None
+    for cs in CLUSTER_SIZES:
+        try:
+            kernels.chunk_scan_plan(s, k, cs)
+        except ValueError:
+            assert cs < kernels.chunk_scan_plan(s, k).cs
+            continue
+        before = kernels.LAUNCHES["chunk_scan"]
+        got = kernels.chunk_scan(n_pad, s, tuple(t.clone() for t in c), x, chunk=k, cs=cs)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["chunk_scan"] == before + 1
+        parity.check_chunk_scan(plain, got, f"chunk {variant} K={k} CS={cs}")
+        assert torch.equal(plain[2][0].cpu(), got[2][0].cpu())
+        first = first or got
+        assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got[2], first[2]))
+
+
+def example_chunk_variant_n_pad(variant, n_nodes):
+    from nomad_tpu_torch.tpu.engine import example_chunk_variant
+
+    return example_chunk_variant(variant, n_nodes=n_nodes, n_tgs=1, seed=5)[0]
+
+
+def test_chunk_sections_cover_the_steps(cuda):
+    """Section timing: every part of a step counted on every CTA, the
+    launch's outputs unchanged."""
+    from nomad_tpu_torch.tpu import chunk
+
+    n_pad, (s, c, x) = _chunk_case(cuda, "spread_affinity", 700, 64, [200, 100])
+    plain = chunk.chunk_scan(n_pad, s, c, x, chunk=64)
+    got, cycles = kernels.chunk_scan_sections(n_pad, s, tuple(t.clone() for t in c), x, chunk=64)
+    torch.cuda.synchronize()
+    parity.check_chunk_scan(plain, got, "sections")
+    assert cycles.shape == (kernels.chunk_scan_plan(s, 64).cs, len(kernels.CHUNK_SECTIONS))
+    assert bool((cycles > 0).all())
+
+
+# -- K3 past the clusters the card holds at once -------------------------------
+
+
+def test_batched_in_waves_past_the_resident_clusters(cuda):
+    """n_pad 33,024 with more evals than the card holds clusters of the
+    plan's size at once: the launch runs in waves and equals single
+    launches of the same evals bit for bit."""
+    base = [example_scan_variant("all", n_nodes=33000, n_tgs=2, n_placements=4, seed=60 + i)
+            for i in range(4)]
+    n_pad = base[0][0]
+    assert n_pad == 33024
+    singles = []
+    for _, st, ca, xs in base:
+        s, c, x = convert.scan_inputs_to_torch(st, ca, xs, cuda)
+        singles.append(kernels.place_scan(n_pad, s, c, x))
+    B = 80
+    for _ in range(2):
+        evals = [base[b % 4] for b in range(B)]
+        stacked = [tuple(np.stack(col) for col in zip(*(e[k] for e in evals))) for k in (1, 2, 3)]
+        sb, cb, xb = convert.scan_inputs_to_torch(*stacked, cuda)
+        plan = kernels.scan_plan(sb, cb, xb)
+        if kernels.scan_waves(plan, B, True) > 1:
+            break
+        B = kernels.max_active_clusters(plan.cs, plan.smem_bytes, True) + 1
+    assert kernels.scan_waves(plan, B, True) > 1
+    carry_b, ys_b = kernels.place_scan_batched(sb, cb, xb)
+    torch.cuda.synchronize()
+    for b in range(B):
+        got = (tuple(t[b] for t in carry_b), tuple(y[b] for y in ys_b))
+        assert _equal(got, singles[b % 4]), f"eval {b}"
+
+
+@pytest.mark.parametrize("variant,k", [("spread_affinity", 64), ("c1m", 5000)])
+def test_chunk_packed_entry_equals_tensor_entry(cuda, variant, k):
+    """``kernels.chunk_scan_packed`` on one pinned-and-copied buffer, on a
+    stream of its own, gives the tensor entry's outputs and carry."""
+    from nomad_tpu_torch.tpu.engine import example_chunk_variant
+
+    from nomad_tpu_torch.tpu import chunk
+
+    n_pad, st, ca = example_chunk_variant(variant, n_nodes=8192 if k > 4096 else 700,
+                                          n_tgs=2, seed=3)
+    xs = chunk.chunk_schedule([(0, 2 * k + 5), (1, k)], k, retry_rounds=1)
+    s, c, x = convert.scan_inputs_to_torch(st, ca, xs, cuda)
+    ref = kernels.chunk_scan(n_pad, s, c, x, chunk=k)
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        packed = kernels.pack_chunk_inputs(n_pad, st, ca, xs, np.zeros(2, np.int32), k, cuda)
+        out, out_layout = kernels.chunk_scan_packed(packed)
+        got = convert.from_device_packed(out, out_layout)
+    for a, b in zip(got, convert.to_numpy(ref[2])):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    _s, p_carry, _x, p_deficit = packed.parts()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(p_carry, ref[0]))
+    assert torch.equal(p_deficit, ref[1])

@@ -404,3 +404,55 @@ def test_device_mesh_over_several_gpus_is_not_ported(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
         Server(ServerConfig(device="cuda", device_mesh=True))
+
+
+def test_device_fault_degrades_to_host_placements_equal_to_jax():
+    """The port of ``tests/test_chaos.py``'s device-fault case: with every
+    ``device_dispatch`` faulted (an injected ``ChaosFault``), the port's
+    server places each eval on the host path, counted as
+    ``dispatch_fallback_host``, and lands every task where the JAX
+    server's device path does."""
+    import copy
+
+    from nomad_tpu_torch.chaos import ChaosInjector
+
+    def run(server_cls, cfg, mock_mod, faulted):
+        nodes = [mock_mod.node() for _ in range(8)]
+        job = mock_mod.job()
+        job.id = job.name = "web"
+        job.task_groups[0].count = 16
+        job.task_groups[0].tasks[0].resources.networks = []
+        for i, n in enumerate(nodes):
+            n.id = f"00000000-0000-4000-8000-{i:012d}"
+            n.name = f"node-{i}"
+            n.compute_class()
+        srv = server_cls(cfg)
+        inj = ChaosInjector(seed=2)
+        try:
+            srv.start()
+            if faulted:
+                inj.arm("device_dispatch", mode="fail", prob=1.0)
+            for n in nodes:
+                srv.register_node(copy.deepcopy(n))
+            srv.register_job(job)
+            wait_for(lambda: len(live_allocs(srv, job)) == 16, msg="16 allocs placed")
+            assert srv.drain_evals(10.0)
+            names = {n.id: n.name for n in nodes}
+            return ({a.name: names[a.node_id] for a in live_allocs(srv, job)},
+                    dict(srv.device_batcher.stats))
+        finally:
+            inj.disarm_all()
+            srv.stop()
+
+    kw = dict(num_schedulers=1, deterministic=True, ring_decorrelate=False,
+              device_min_placements=0, device_batch=8, heartbeat_min_ttl=3600.0,
+              heartbeat_max_ttl=3601.0)
+    jax_map, jax_stats = run(JaxServer, JaxServerConfig(**kw), jmock, False)
+    before = counter("nomad.tpu_engine.dispatch_fallback_host")
+    launches = kernels.LAUNCHES["place_scan"]
+    host_map, host_stats = run(Server, ServerConfig(device="cpu", **kw), mock, True)
+    assert jax_stats["dispatches"] > 0, "the JAX run must use the device"
+    assert host_stats["dispatches"] == 0, "the faulted run must complete no dispatch"
+    assert counter("nomad.tpu_engine.dispatch_fallback_host") > before
+    assert kernels.LAUNCHES["place_scan"] == launches
+    assert len(host_map) == 16 and host_map == jax_map
