@@ -27,6 +27,9 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    for bit, at 5,000 nodes with P = 5,000 forced nodes, and with two
    device dims and a padded placement axis; then against the scan
    kernel on the same input (the synthetic variant's node capacities);
+   the packed entry (``kernels.pack_forced_inputs`` /
+   ``forced_eval_packed``, the server's path) bit for bit against the
+   tensor entry, both timed;
 6. the scan's preemption branch (has_pre, int arm) against its plain
    version, bit for bit, at 5,000 nodes with C = 16 candidate slots: the
    ``preempt`` variant (P = 1,024) and the ``preempt_forced`` variant
@@ -45,7 +48,13 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    committed to the FSM, no node overcommitted, nothing unported or
    fallen back, the arm's kernel launched, a mean eval batch above 1.
    The float run then registers one system job on every node: the
-   forced-node kernel's float arm must launch on the default path;
+   forced-node kernel's float arm must launch on the default path.
+   Each run's spy shows that every batch made one (slab) host-to-device
+   copy and every ``run_forced`` eval one (packed) copy, and no other;
+   every packed K3 launch of the main path is replayed through the
+   tensor entry on its own inputs, bit for bit; the batcher's per-batch
+   host sections (slab write, copy in, launch, copy back) and
+   ``run_forced``'s host sections per system eval are printed;
 9. the system slice: the port's Server with deterministic=True, 16
    workers, 5,000 nodes of BASELINE config 4's shape (1,200 MHz, 2,048
    MB, every fourth a GPU node), and in order (a) a low-priority fill of
@@ -62,11 +71,14 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    at 5,000 nodes, one at a time, placed by tpu_binpack on the card and
    by the host binpack stack from the same state: plans and eviction
    sets (the same victims, in the same order) must be equal;
-11. the main paths' kernel inputs replayed (the Harness evals, the last
-   batched launch of each server run, every K4 launch, the two has_pre
-   launches of the system slice that evicted on the most steps): kernel
-   vs plain (int bit for bit, float within the bound), with the kernel's
-   time, the plain version's time and the kernel's bound on this card;
+11. the main paths' own launches (the Harness evals, the last batched
+   launch of each server run, every K4 launch, the two has_pre launches
+   of the system slice that evicted on the most steps): the outputs the
+   main path's packed launch gave held against the plain version on its
+   inputs (int bit for bit, float within the bound), then replayed
+   through the same packed entry, equal to the main path's, with its
+   time (the kernels line's ms), the plain version's time and the
+   kernel's bound on this card;
    every placement-scan launch of phases 3, 4, 6 and 11 runs at the
    launch plan's cluster size (printed as cs=, with the time a step) and
    again at a forced CS = 1, held bit for bit against it in both arms
@@ -429,8 +441,11 @@ def phase_batched_waves(kernels, convert, engine):
 def phase_forced(kernels, convert, engine, forced):
     """K4 against its plain version on the card, both arms, at N_NODES
     nodes with one forced node per node (P = N_NODES), and with two
-    device dims and a padded placement axis; then against the scan
-    kernel on the same input. Returns the records of the launches."""
+    device dims and a padded placement axis (forced node -1); then
+    against the scan kernel on the same input; the packed entry
+    (``pack_forced_inputs`` / ``forced_eval_packed``, the server's path)
+    on the same inputs bit for bit against the tensor entry, each timed.
+    Returns the records of the launches."""
     import numpy as np
     import torch
 
@@ -455,14 +470,22 @@ def phase_forced(kernels, convert, engine, forced):
         _, scan = kernels.place_scan(n_pad, s, tuple(t.clone() for t in c), x)
         if not (torch.equal(got[0].cpu(), scan[0].cpu()) and torch.equal(got[1].cpu(), scan[1].cpu())):
             raise AssertionError(f"K4 {arm} D={4 + device_dims}: kernel differs from the scan kernel")
+        packed = kernels.pack_forced_inputs((st, ca, xs), DEVICE)
+        pk = convert.from_device_packed(*kernels.forced_eval_packed(packed))
+        if not all(a.dtype == b.dtype and np.array_equal(a, b)
+                   for a, b in zip(pk, convert.to_numpy(got[:2]))):
+            raise AssertionError(f"K4 {arm} D={4 + device_dims}: the packed entry differs from "
+                                 f"the tensor entry")
         k_ms = cuda_ms(lambda: kernels.forced_eval(s, c, x), reps=21)
+        pk_ms = cuda_ms(lambda: kernels.forced_eval_packed(packed), reps=21)
         scan_ms = cuda_ms(lambda: kernels.place_scan(n_pad, s, tuple(t.clone() for t in c), x))
         nbytes, ops = kernels.forced_eval_work(s, c, x)
         placed = int((got[0] >= 0).sum())
         recs.append((arm, k_ms, p_ms, nbytes, ops))
         log(f"K4 {arm} D={4 + device_dims} P={x[0].shape[0]} n_pad={n_pad} placed={placed} "
-            f"equal to plain and to the scan kernel: yes kernel_ms={k_ms:.4f} "
-            f"plain_ms={p_ms:.2f} scan_kernel_ms={scan_ms:.3f} bytes={nbytes} ops={ops}")
+            f"equal to plain and to the scan kernel, packed entry equal to the tensor entry: "
+            f"yes kernel_ms={k_ms:.4f} packed_ms={pk_ms:.4f} plain_ms={p_ms:.2f} "
+            f"scan_kernel_ms={scan_ms:.3f} bytes={nbytes} ops={ops}")
     return recs
 
 
@@ -833,17 +856,13 @@ def replay_chunked(kernels, chunk, parity, spy):
     # launch, the one copy back with its synchronize, the rest (the
     # schedule and the FIFO expansion)
     copies = [cp for _, _, _, cp in spy.chunk_evals]
-    if any(cp != {"packed": 1, "loose": 0} for cp in copies):
+    if any(cp != {"packed": 1, "slab": 0, "loose": 0} for cp in copies):
         raise AssertionError(f"chunked evals' host-to-device copies: {copies}")
     log(f"chunked server: every one of {len(copies)} chunked evals made one packed "
         f"host-to-device copy and no other")
-    secs = {name: sorted(rec.get(name, 0.0) for _, _, rec, _ in spy.chunk_evals)
-            for name in ("total", "h2d", "launch", "d2h")}
-    secs["rest"] = sorted(rec["total"] - sum(v for n, v in rec.items() if n != "total")
-                          for _, _, rec, _ in spy.chunk_evals)
     log("chunked server: run_chunked host ms per eval (median / max / sum over "
-        f"{len(spy.chunk_evals)} evals): " + "; ".join(
-            f"{name} {v[len(v) // 2]:.2f} / {v[-1]:.2f} / {sum(v):.1f}" for name, v in secs.items()))
+        f"{len(spy.chunk_evals)} evals): "
+        + sections_text(host_sections([rec for _, _, rec, _ in spy.chunk_evals])))
     divs, total = [], 0
     for enc, chosen, _rec, _cp in spy.chunk_evals:
         static, carry, xs = scan_inputs_to_torch(enc.static, enc.carry, enc.xs, DEVICE)
@@ -935,7 +954,7 @@ def preemption_config(structs, service: bool):
 
 class _Spy:
     """Counters and fallback reasons of a run, and the kernel inputs its
-    main path launched with (restored on exit)."""
+    main path launched with and the outputs it got (restored on exit)."""
 
     def __init__(self, kernels):
         import logging
@@ -944,12 +963,19 @@ class _Spy:
 
         import threading
 
-        from nomad_tpu_torch.tpu import convert, engine
+        from nomad_tpu_torch.tpu import batcher, convert, engine
 
         self.kernels, self.metrics, self.engine_mod = kernels, metrics, engine
         self.convert = convert
         self.engine_cls = engine.TorchPlacementEngine
+        self.batcher_cls = batcher.DeviceBatcher
         self.counted, self.reasons = [], []
+        # the main path's K3 launches through place_scan_batched_packed
+        # (the batcher's batches and run_scan_single's batches of one):
+        # (its packed inputs as they were before the launch, a clone; the
+        # buffer after it, carry updated; the output buffer; its layout);
+        # its K4 launches through forced_eval_packed: (the packed inputs,
+        # which K4 does not write; the output buffer; its layout)
         self.batched, self.forced = [], []
         # run_chunked's launches: (its pack_chunk_inputs arguments but the
         # chunk size, by reference: numpy arrays nothing writes; the
@@ -957,8 +983,12 @@ class _Spy:
         # buffer and its layout);
         # chunked evals: (encode, expanded chosen, host ms of run_chunked
         # by section: h2d, launch, d2h, total; the copies it made: packed
-        # host-to-device copies, loose ones)
+        # host-to-device copies, slab copies, loose ones)
         self.chunked, self.chunk_evals = [], []
+        # the exact tier's batches: the host-to-device copies each made;
+        # run_forced's evals: (host ms by section: h2d (check, pack and
+        # copy), launch, d2h, total; the copies it made)
+        self.batch_copies, self.forced_evals = [], []
         self._tls = threading.local()
         spy = self
 
@@ -969,46 +999,74 @@ class _Spy:
                     spy.reasons.append(msg)
 
         self.handler = Reasons(level=logging.DEBUG)
-        self.logger = logging.getLogger("nomad_tpu.tpu.engine")
+        self.logger = logging.getLogger("nomad_tpu_torch.tpu.engine")
 
     def _section(self, name, t0):
         """Add the host ms since ``t0`` to section ``name`` of the
-        calling thread's run_chunked, if it is inside one."""
+        calling thread's timed call (run_chunked, run_forced), if it is
+        inside one."""
         rec = getattr(self._tls, "rec", None)
         if rec is not None:
             rec[name] = rec.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
 
     def _copy(self, kind):
-        """Count one host-to-device copy of ``kind`` (packed or loose) in
-        the calling thread's run_chunked, if it is inside one."""
+        """Count one host-to-device copy of ``kind`` (packed, slab or
+        loose) in the calling thread's counted call, if it is inside one."""
         copies = getattr(self._tls, "copies", None)
         if copies is not None:
             copies[kind] += 1
 
+    def _timed(self, orig, sink, keep=lambda out: out):
+        """``orig`` (an engine method) with its host sections and copies
+        recorded: ``sink`` gains (enc, ``keep(out)``, sections, copies)."""
+        def run(engine, enc, *args, **kwargs):
+            rec, copies = {}, {"packed": 0, "slab": 0, "loose": 0}
+            self._tls.rec, self._tls.copies = rec, copies
+            t0 = time.perf_counter()
+            try:
+                out = orig(engine, enc, *args, **kwargs)
+            finally:
+                self._tls.rec = self._tls.copies = None
+            rec["total"] = (time.perf_counter() - t0) * 1e3
+            sink.append((enc, keep(out), rec, copies))
+            return out
+        return run
+
     def __enter__(self):
-        k, em = self.kernels, self.engine_mod
-        self.orig = (self.metrics.incr_counter, k.place_scan_batched, k.forced_eval,
-                     k.pack_chunk_inputs, k.chunk_scan_packed, self.engine_cls.run_chunked,
-                     self.convert.to_device_packed, em.from_device_packed,
-                     em.scan_inputs_to_torch)
-        (orig_incr, orig_batched, orig_forced, orig_pack, orig_chunk, orig_run_chunked,
-         orig_h2d, orig_d2h, orig_loose) = self.orig
+        import dataclasses
+
+        k, em, cv = self.kernels, self.engine_mod, self.convert
+        self.orig = (self.metrics.incr_counter, k.place_scan_batched_packed, k.forced_eval_packed,
+                     k.pack_forced_inputs, k.pack_chunk_inputs, k.chunk_scan_packed,
+                     self.engine_cls.run_chunked, self.engine_cls.run_forced,
+                     self.batcher_cls._run_batch, cv.to_device_packed, cv.HostSlab.to_device,
+                     cv.scan_inputs_to_torch, em.from_device_packed)
+        (orig_incr, orig_batched, orig_forced, orig_pack_forced, orig_pack, orig_chunk,
+         orig_run_chunked, orig_run_forced, orig_run_batch, orig_h2d, orig_slab, orig_loose,
+         orig_d2h) = self.orig
 
         def count(name, value=1.0):
             self.counted.append(name)
             orig_incr(name, value)
 
-        def batched(static_b, carry_b, xs_b, cs=None):
-            inputs = tuple(tuple(t.clone() for t in part) for part in (static_b, carry_b, xs_b))
-            out = orig_batched(static_b, carry_b, xs_b, cs=cs)
-            # with the number of steps that evicted
-            self.batched.append((inputs, int((out[1][4] >= 0).any(dim=-1).sum())))
+        def batched(packed, cs=None):
+            fresh = dataclasses.replace(packed, buf=packed.buf.clone())
+            out = orig_batched(packed, cs)
+            self.batched.append((fresh, packed, *out))
             return out
 
-        def forced(static, carry, xs):
-            self.forced.append(tuple(tuple(t.clone() for t in part)
-                                     for part in (static, carry, xs)))
-            return orig_forced(static, carry, xs)
+        def forced(packed):
+            t0 = time.perf_counter()
+            out = orig_forced(packed)
+            self._section("launch", t0)
+            self.forced.append((packed, *out))
+            return out
+
+        def pack_forced(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = orig_pack_forced(*args, **kwargs)
+            self._section("h2d", t0)
+            return out
 
         def pack_chunk_inputs(n_pad, static, carry, xs, deficit, chunk, device="cuda"):
             # run_chunked's inputs: checked and copied to the card
@@ -1026,9 +1084,22 @@ class _Spy:
             self.chunked.append((self._tls.args, packed, *out))
             return out
 
+        def run_batch(batcher, batch):
+            copies = {"packed": 0, "slab": 0, "loose": 0}
+            self._tls.copies = copies
+            try:
+                return orig_run_batch(batcher, batch)
+            finally:
+                self._tls.copies = None
+                self.batch_copies.append(copies)
+
         def h2d(*args, **kwargs):
             self._copy("packed")
             return orig_h2d(*args, **kwargs)
+
+        def slab(*args, **kwargs):
+            self._copy("slab")
+            return orig_slab(*args, **kwargs)
 
         def loose(*args, **kwargs):
             t0 = time.perf_counter()
@@ -1043,25 +1114,16 @@ class _Spy:
             self._section("d2h", t0)
             return out
 
-        def run_chunked(engine, enc, *args, **kwargs):
-            rec, copies = {}, {"packed": 0, "loose": 0}
-            self._tls.rec, self._tls.copies = rec, copies
-            t0 = time.perf_counter()
-            try:
-                out = orig_run_chunked(engine, enc, *args, **kwargs)
-            finally:
-                self._tls.rec = self._tls.copies = None
-            rec["total"] = (time.perf_counter() - t0) * 1e3
-            self.chunk_evals.append((enc, out[0].copy(), rec, copies))
-            return out
-
         self.metrics.incr_counter = count
-        # kernels.place_scan launches through kernels.place_scan_batched
-        (k.place_scan_batched, k.forced_eval, k.pack_chunk_inputs,
-         k.chunk_scan_packed) = batched, forced, pack_chunk_inputs, chunk_scan_packed
-        self.engine_cls.run_chunked = run_chunked
-        self.convert.to_device_packed = h2d
-        em.from_device_packed, em.scan_inputs_to_torch = d2h, loose
+        (k.place_scan_batched_packed, k.forced_eval_packed, k.pack_forced_inputs,
+         k.pack_chunk_inputs, k.chunk_scan_packed) = (batched, forced, pack_forced,
+                                                      pack_chunk_inputs, chunk_scan_packed)
+        self.engine_cls.run_chunked = self._timed(orig_run_chunked, self.chunk_evals,
+                                                  lambda out: out[0].copy())
+        self.engine_cls.run_forced = self._timed(orig_run_forced, self.forced_evals)
+        self.batcher_cls._run_batch = run_batch
+        cv.to_device_packed, cv.HostSlab.to_device, cv.scan_inputs_to_torch = h2d, slab, loose
+        em.from_device_packed = d2h
         self.logger.addHandler(self.handler)
         self.level = self.logger.level
         self.logger.setLevel(logging.DEBUG)
@@ -1070,16 +1132,48 @@ class _Spy:
 
     def __exit__(self, *exc):
         self.launches = dict(self.kernels.LAUNCHES)
-        k = self.kernels
-        (self.metrics.incr_counter, k.place_scan_batched, k.forced_eval, k.pack_chunk_inputs,
-         k.chunk_scan_packed, self.engine_cls.run_chunked, self.convert.to_device_packed,
-         self.engine_mod.from_device_packed, self.engine_mod.scan_inputs_to_torch) = self.orig
+        k, em, cv = self.kernels, self.engine_mod, self.convert
+        (self.metrics.incr_counter, k.place_scan_batched_packed, k.forced_eval_packed,
+         k.pack_forced_inputs, k.pack_chunk_inputs, k.chunk_scan_packed,
+         self.engine_cls.run_chunked, self.engine_cls.run_forced, self.batcher_cls._run_batch,
+         cv.to_device_packed, cv.HostSlab.to_device, cv.scan_inputs_to_torch,
+         em.from_device_packed) = self.orig
         self.logger.removeHandler(self.handler)
         self.logger.setLevel(self.level)
         return False
 
     def count(self, name):
         return self.counted.count(name)
+
+    def copies_line(self, what) -> str:
+        """Check that every exact-tier batch made one slab copy and every
+        run_forced eval one packed copy, and nothing else; say so."""
+        want_batch = {"packed": 0, "slab": 1, "loose": 0}
+        want_forced = {"packed": 1, "slab": 0, "loose": 0}
+        bad = ([c for c in self.batch_copies if c != want_batch]
+               + [c for *_, c in self.forced_evals if c != want_forced])
+        if bad:
+            raise AssertionError(f"{what}: host-to-device copies {bad[:5]}")
+        return (f"{what}: every one of {len(self.batch_copies)} batches made one (slab) "
+                f"host-to-device copy, every one of {len(self.forced_evals)} run_forced evals "
+                f"one (packed) copy, and no other")
+
+
+def host_sections(records) -> dict:
+    """Host ms by section over timed calls (the spy's run_chunked or
+    run_forced records): median / max / sum of each section, the rest
+    (total less the sections) included."""
+    names = sorted({n for rec in records for n in rec if n != "total"})
+    secs = {n: sorted(rec.get(n, 0.0) for rec in records) for n in ("total", *names)}
+    secs["rest"] = sorted(rec["total"] - sum(v for n, v in rec.items() if n != "total")
+                          for rec in records)
+    return {n: {"median": v[len(v) // 2], "max": v[-1], "sum": sum(v)} if v else {}
+            for n, v in secs.items()}
+
+
+def sections_text(secs) -> str:
+    return "; ".join(f"{n} {v['median']:.3f} / {v['max']:.3f} / {v['sum']:.1f}"
+                     for n, v in secs.items() if v)
 
 
 def phase_system_server(kernels, seed: int):
@@ -1189,6 +1283,9 @@ def phase_system_server(kernels, seed: int):
             "preemptions": len(preempted), "preempted_by_job": by_job_pre,
             "evicted_of_job": evicted_of, "nodes_checked": len(state.nodes()),
             "phases_s": shares, "batcher": dict(server.device_batcher.stats),
+            "batch_sections": server.device_batcher.section_profile(),
+            "forced_sections": host_sections([r for _, _, r, _ in spy.forced_evals]),
+            "copies": spy.copies_line("system slice"),
         })
         return rec, spy
     finally:
@@ -1388,6 +1485,7 @@ def phase_server(kernels, deterministic: bool, seed: int, chunked: bool = False)
         launches, counted = spy.launches, spy.counted
         stats = dict(server.device_batcher.stats)
         profile = server.device_batcher.dispatch_profile()
+        batch_sections = server.device_batcher.section_profile()
         if placed != expected or not drained:
             raise AssertionError(f"server {arm}: {placed} of {expected} placements committed, "
                                  f"broker drained: {drained}")
@@ -1412,7 +1510,10 @@ def phase_server(kernels, deterministic: bool, seed: int, chunked: bool = False)
                "evals_handled": counted.count("nomad.tpu_engine.handled"),
                "unported": unported, "fallback": fallback, "mean_eval_batch": mean_batch,
                "batcher": stats, "dispatch_profile": profile, "phases_s": shares,
-               "nodes_checked": len(state.nodes()), "system_job": sys_rec}
+               "nodes_checked": len(state.nodes()), "system_job": sys_rec,
+               "batch_sections": batch_sections,
+               "forced_sections": host_sections([r for _, _, r, _ in spy.forced_evals]),
+               "copies": spy.copies_line(f"server {arm}")}
         if chunked:
             # every C1M template is chunk-eligible in the float arm: each
             # job's eval takes the chunk kernel, one launch per eval;
@@ -1461,6 +1562,8 @@ def phase_slice(kernels, seed: int):
     import numpy as np
 
     from nomad_tpu_torch import mock
+    import dataclasses
+
     from nomad_tpu_torch.scheduler.testing import Harness
     from nomad_tpu_torch.structs import structs
     from nomad_tpu_torch.utils import metrics, phases
@@ -1499,20 +1602,23 @@ def phase_slice(kernels, seed: int):
     counted = []
     orig_incr = metrics.incr_counter
     captured = []
-    orig_scan = kernels.place_scan
+    orig_scan = kernels.place_scan_batched_packed
 
     def count(name, value=1.0):
         counted.append(name)
         orig_incr(name, value)
 
-    def capture(n_pad, static, carry, xs, cs=None):
-        captured.append((n_pad, tuple(t.clone() for t in static),
-                         tuple(t.clone() for t in carry), tuple(t.clone() for t in xs)))
-        return orig_scan(n_pad, static, carry, xs, cs=cs)
+    def capture(packed, cs=None):
+        # run_scan_single's batch of one: its inputs before the launch
+        # (a clone), the buffer after it, the outputs and their layout
+        fresh = dataclasses.replace(packed, buf=packed.buf.clone())
+        out = orig_scan(packed, cs)
+        captured.append((fresh, packed, *out))
+        return out
 
     records, snapshots = [], []
     kernels.reset_launch_counts()
-    metrics.incr_counter, kernels.place_scan = count, capture
+    metrics.incr_counter, kernels.place_scan_batched_packed = count, capture
     try:
         for job, kind in jobs:
             snapshots.append(h.state.snapshot())
@@ -1524,7 +1630,7 @@ def phase_slice(kernels, seed: int):
             phases.disable()
             records.append(rec)
     finally:
-        metrics.incr_counter, kernels.place_scan = orig_incr, orig_scan
+        metrics.incr_counter, kernels.place_scan_batched_packed = orig_incr, orig_scan
         phases.disable()
     launches = kernels.LAUNCHES["place_scan"]
     handled = counted.count("nomad.tpu_engine.handled")
@@ -1588,51 +1694,127 @@ def bound(nbytes, ops):
     return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations")
 
 
-def replay_batched(kernels, step, parity, sb, cb, xb, what, float_arm):
-    """A captured K3 launch replayed: kernel vs plain (int bit for bit,
-    float within the bound); returns (kernel ms, plain ms, bound ms,
-    bound by, worst |dscore|)."""
-    k_out = kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb)
+def packed_scan_ms(kernels, fresh, cs=None, reps: int = 3) -> float:
+    """Device ms of one ``kernels.place_scan_batched_packed`` launch (the
+    main path's own wrapper) at the plan's CS or a forced ``cs``, each on
+    its own copy of the packed buffer ``fresh``, made before the timing
+    (a launch updates the buffer's carry in place)."""
+    import dataclasses
+
+    bufs = [dataclasses.replace(fresh, buf=fresh.buf.clone()) for _ in range(reps + 1)]
+    return cuda_ms(lambda: kernels.place_scan_batched_packed(bufs.pop(), cs), reps)
+
+
+def packed_scan_results(packed, out, out_layout):
+    """A packed K3 launch's ``(carry, ys)``: the carry it left in its
+    buffer (views on the card) and its outputs (host tensors)."""
+    import torch
+
+    from nomad_tpu_torch.tpu.convert import from_device_packed
+
+    _s, carry, _x = packed.parts()
+    return tuple(carry), tuple(torch.from_numpy(a) for a in from_device_packed(out, out_layout))
+
+
+def evicting_steps(launch) -> int:
+    """Steps of a captured K3 launch that evicted."""
+    _fresh, after, out, out_layout = launch
+    return int((packed_scan_results(after, out, out_layout)[1][4] >= 0).any(dim=-1).sum())
+
+
+def hold_batched_launches(kernels, launches, what) -> str:
+    """Every captured main-path K3 launch replayed through the tensor
+    entry on its own inputs: outputs and final carry bit for bit against
+    the main path's packed launch."""
+    for i, (fresh, after, out, out_layout) in enumerate(launches):
+        sb, cb, xb = fresh.parts()
+        ref = kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb)
+        compare(packed_scan_results(after, out, out_layout), ref,
+                f"{what} launch {i}: the main path's packed launch against the tensor entry")
+    return (f"{what}: all {len(launches)} packed K3 launches of the main path equal the tensor "
+            f"entry on their inputs, bit for bit")
+
+
+def replay_batched(kernels, step, parity, launch, what, float_arm):
+    """A captured main-path K3 launch (``place_scan_batched_packed``): its
+    own outputs and final carry held against the plain version on its
+    inputs (int bit for bit, float within the bound), then replayed
+    through the same entry on a fresh copy of its inputs at the plan's CS
+    and at a forced CS = 1, each bit for bit against the main path's, and
+    timed (the tensor entry's time beside it). Returns (kernel ms, plain
+    ms, bound ms, bound by, worst |dscore|)."""
+    import dataclasses
+
+    fresh, after, out, out_layout = launch
+    main = packed_scan_results(after, out, out_layout)
+    sb, cb, xb = fresh.parts()
     stats_b = []
     p_out, p_ms = timed_wall(lambda: plain_batched(step, sb, cb, xb, stats_b))
     worst = 0
     for b in range(sb[0].shape[0]):
-        got = (tuple(t[b] for t in k_out[0]), tuple(y[b] for y in k_out[1]))
+        got = (tuple(t[b] for t in main[0]), tuple(y[b] for y in main[1]))
         ref = (tuple(t[b] for t in p_out[0]), tuple(y[b] for y in p_out[1]))
         if float_arm:
             worst = max(worst, parity.check_float_scan(ref, got, xb[0][b], f"{what} eval {b}")[1])
         else:
             worst = max(worst, compare(got, ref, f"{what} eval {b}"))
-    k_ms = cuda_ms(lambda: kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb))
-    cs1_ms = hold_cs1(lambda cs: kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb,
-                                                            cs=cs), k_out, what)
-    nbytes, ops = kernels.place_scan_batched_work(sb, cb, xb, k_out[1][3], stats_b)
+    cs1_ms = None
+    for cs in (None, 1):
+        again = dataclasses.replace(fresh, buf=fresh.buf.clone())
+        try:
+            res = kernels.place_scan_batched_packed(again, cs)
+        except ValueError as e:
+            log(f"{what}: CS=1 not run: {e}")
+            continue
+        compare(packed_scan_results(again, *res), main,
+                f"{what}: the replay at {'CS=1' if cs else 'the plan'} against the main path")
+        if cs:
+            cs1_ms = packed_scan_ms(kernels, fresh, 1, reps=1)
+    k_ms = packed_scan_ms(kernels, fresh)
+    t_ms = cuda_ms(lambda: kernels.place_scan_batched(sb, tuple(t.clone() for t in cb), xb))
+    nbytes, ops = kernels.place_scan_batched_work(sb, cb, xb, main[1][3], stats_b)
     b_ms, b_by = bound(nbytes, ops)
-    real = int((~k_out[1][3]).sum())
-    evicting = int((k_out[1][4] >= 0).any(dim=-1).sum())
+    real = int((~main[1][3]).sum())
+    evicting = int((main[1][4] >= 0).any(dim=-1).sum())
     p = xb[0].shape[1]
     log(f"{what}: B={sb[0].shape[0]} n_pad={sb[0].shape[1]} P={p} "
-        f"C={sb[20].shape[2]} steps_run={real} evicting_steps={evicting} equal=yes "
-        f"cs={plan_cs(kernels, sb, cb, xb, True)} kernel_ms={k_ms:.3f} "
-        f"per_step_us={k_ms * 1e3 / p:.2f} cs1_ms={fmt_ms(cs1_ms)} plain_ms={p_ms:.1f} "
-        f"bytes={nbytes} ops={ops} bound_ms={b_ms:.6f} ({b_by})")
+        f"C={sb[20].shape[2]} steps_run={real} evicting_steps={evicting} the main path's "
+        f"outputs equal to plain, replays equal to them: yes "
+        f"cs={plan_cs(kernels, sb, cb, xb, True)} kernel_ms={k_ms:.3f} (packed entry; tensor "
+        f"entry {t_ms:.3f}) per_step_us={k_ms * 1e3 / p:.2f} cs1_ms={fmt_ms(cs1_ms)} "
+        f"plain_ms={p_ms:.1f} bytes={nbytes} ops={ops} bound_ms={b_ms:.6f} ({b_by})")
     log(f"  {what}: {sections_line(kernels, sb, cb, xb)}")
     return k_ms, p_ms, b_ms, b_by, worst
 
 
-def replay_forced(kernels, forced, s, c, x, what):
-    """A captured K4 launch replayed: kernel vs plain, bit for bit."""
-    import torch
+def replay_forced(kernels, forced, launch, what):
+    """A captured main-path K4 launch (``forced_eval_packed``): its own
+    chosen and scores held against the plain version on its inputs, bit
+    for bit (the plain version's pulls, skips and evictions are the
+    constants the host makes), then launched again on the same buffer
+    (K4 writes none of its inputs), equal, and timed."""
+    import numpy as np
 
-    got = kernels.forced_eval(s, c, x)
+    from nomad_tpu_torch.tpu.convert import from_device_packed
+
+    packed, out, out_layout = launch
+    main = from_device_packed(out, out_layout)
+    s, c, x = packed.parts()
     plain, p_ms = timed_wall(lambda: forced.forced_eval(s, c, x))
-    if not all(a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, plain)):
-        raise AssertionError(f"{what}: kernel differs from plain")
-    k_ms = cuda_ms(lambda: kernels.forced_eval(s, c, x), reps=21)
+    ref = [t.cpu().numpy() for t in plain]
+    p = x[0].shape[0]
+    if not (all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(main, ref[:2]))
+            and not ref[2].any() and not ref[3].any() and ref[4].shape == (p, 0)):
+        raise AssertionError(f"{what}: the main path's packed launch differs from plain")
+    again = from_device_packed(*kernels.forced_eval_packed(packed))
+    if not all(np.array_equal(a, b) for a, b in zip(again, main)):
+        raise AssertionError(f"{what}: a replay differs from the main path's launch")
+    k_ms = cuda_ms(lambda: kernels.forced_eval_packed(packed), reps=21)
     nbytes, ops = kernels.forced_eval_work(s, c, x)
     b_ms, b_by = bound(nbytes, ops)
-    log(f"{what}: P={x[0].shape[0]} n_pad={s[0].shape[0]} D={s[0].shape[1]} "
-        f"placed={int((got[0] >= 0).sum())} equal=yes kernel_ms={k_ms:.4f} plain_ms={p_ms:.2f} "
+    log(f"{what}: P={p} n_pad={s[0].shape[0]} D={s[0].shape[1]} "
+        f"placed={int((main[0] >= 0).sum())} the main path's outputs equal to plain: yes "
+        f"kernel_ms={k_ms:.4f} (packed entry) plain_ms={p_ms:.2f} "
         f"bytes={nbytes} ops={ops} bound_ms={b_ms:.6f} ({b_by})")
     return k_ms, p_ms, b_ms, b_by, 0
 
@@ -1699,7 +1881,7 @@ def main() -> int:
     servers = {}
     for deterministic in (False, True):
         rec, spy = phase_server(kernels, deterministic, args.seed)
-        servers[rec["arm"]] = (rec, [spy.batched[-1][0]], spy.forced)
+        servers[rec["arm"]] = (rec, [spy.batched[-1]], spy.forced)
         log(f"server {rec['arm']}: {rec['placements']} placements of {rec['jobs']} jobs in "
             f"{rec['wall_s'] * 1000:.1f} ms ({rec['placements_per_s']:.1f} placements/s) on {card}; "
             f"launches {json.dumps(rec['launches'], sort_keys=True)}; evals handled "
@@ -1710,6 +1892,13 @@ def main() -> int:
             log(f"  system job after the mix: {json.dumps(rec['system_job'], sort_keys=True)}")
         log(f"  batcher {json.dumps(rec['batcher'], sort_keys=True)}")
         log(f"  dispatch_profile {json.dumps(rec['dispatch_profile'], sort_keys=True)}")
+        log(f"  batch sections (host ms: median, sum) "
+            f"{json.dumps(rec['batch_sections'], sort_keys=True)}")
+        if rec["forced_sections"]:
+            log(f"  run_forced host ms per system eval (median / max / sum): "
+                f"{sections_text(rec['forced_sections'])}")
+        log(f"  {rec['copies']}")
+        log("  " + hold_batched_launches(kernels, spy.batched, f"server {rec['arm']}"))
         log(f"  phases_s {json.dumps(rec['phases_s'], sort_keys=True)}")
         stamp(f"server {rec['arm']} done")
 
@@ -1723,6 +1912,8 @@ def main() -> int:
         f"none overcommitted")
     log(f"  parity_sample_stats {json.dumps(rec['parity_sample_stats'], sort_keys=True)}")
     log(f"  batcher {json.dumps(rec['batcher'], sort_keys=True)}")
+    log(f"  {rec['copies']}")
+    log("  " + hold_batched_launches(kernels, chunk_spy.batched, "server chunked"))
     log(f"  phases_s {json.dumps(rec['phases_s'], sort_keys=True)}")
     stamp("server chunked done")
     k5_rows, k5_worst = replay_chunked(kernels, chunk, parity, chunk_spy)
@@ -1743,6 +1934,12 @@ def main() -> int:
         log(f"  ({phase}) wall_s={prec['wall_s']:.3f} running {json.dumps(prec['running'], sort_keys=True)} "
             f"launches so far {json.dumps(prec['launches'], sort_keys=True)}")
     log(f"  batcher {json.dumps(sys_rec['batcher'], sort_keys=True)}")
+    log(f"  batch sections (host ms: median, sum) "
+        f"{json.dumps(sys_rec['batch_sections'], sort_keys=True)}")
+    log(f"  run_forced host ms per system eval (median / max / sum): "
+        f"{sections_text(sys_rec['forced_sections'])}")
+    log(f"  {sys_rec['copies']}")
+    log("  " + hold_batched_launches(kernels, sys_spy.batched, "system slice"))
     log(f"  phases_s {json.dumps(sys_rec['phases_s'], sort_keys=True)}")
     stamp("system slice done")
 
@@ -1758,11 +1955,18 @@ def main() -> int:
     rows = {name: [] for name in ("place_scan", "place_scan_f32", "place_scan_has_pre",
                                   "forced_eval", "forced_eval_f32")}
     rows["chunk_scan"] = k5_rows
-    for i, (n_pad, s, c, x) in enumerate(captured):
+    for i, (fresh, after, out, out_layout) in enumerate(captured):
+        # run_scan_single's batch of one: the eval's own arrays
+        s, c, x = (tuple(t[0] for t in part) for part in fresh.parts())
+        n_pad = s[0].shape[0]
+        main_c, main_y = packed_scan_results(after, out, out_layout)
         k_out = run_kernel(kernels, n_pad, s, c, x)
+        compare(k_out, (tuple(t[0] for t in main_c), tuple(y[0] for y in main_y)),
+                f"main-path eval {i}: the tensor entry against the main path's packed launch")
         p_out, p_ms = timed_wall(lambda: run_plain(step, n_pad, s, c, x))
         worst = max(worst, compare(k_out, p_out, f"main-path eval {i}"))
-        k_ms = cuda_ms(lambda: run_kernel(kernels, n_pad, s, c, x))
+        k_ms = packed_scan_ms(kernels, fresh)
+        t_ms = cuda_ms(lambda: run_kernel(kernels, n_pad, s, c, x))
         cs1_ms = hold_cs1(lambda cs: run_kernel(kernels, n_pad, s, c, x, cs), k_out,
                           f"main-path eval {i}")
         nbytes, ops = kernels.place_scan_work(s, c, x, k_out[1][3])
@@ -1771,9 +1975,9 @@ def main() -> int:
         p = x[0].shape[0]
         log(f"main-path eval {i}: n_pad={n_pad} P={p} S={s[10].shape[1]} "
             f"aff={s[4].shape[0] > 0} evict={x[3].shape[1] > 0} equal=yes "
-            f"cs={plan_cs(kernels, s, c, x)} kernel_ms={k_ms:.3f} per_step_us={k_ms * 1e3 / p:.2f} "
-            f"cs1_ms={fmt_ms(cs1_ms)} plain_ms={p_ms:.1f} bytes={nbytes} ops={ops} "
-            f"bound_ms={b_ms:.6f} ({b_by})")
+            f"cs={plan_cs(kernels, s, c, x)} kernel_ms={k_ms:.3f} (packed entry; tensor entry "
+            f"{t_ms:.3f}) per_step_us={k_ms * 1e3 / p:.2f} cs1_ms={fmt_ms(cs1_ms)} "
+            f"plain_ms={p_ms:.1f} bytes={nbytes} ops={ops} bound_ms={b_ms:.6f} ({b_by})")
         log(f"  main-path eval {i}: " + sections_line(
             kernels, *(tuple(t.unsqueeze(0) for t in part) for part in (s, c, x))))
     for arm, (rec, launch_inputs, forced_inputs) in servers.items():
@@ -1781,28 +1985,28 @@ def main() -> int:
             continue  # replayed above
         kernel = "place_scan" if arm == "int" else "place_scan_f32"
         # the last batched launch only (PRs 1-2 also replayed the first)
-        for which, (sb, cb, xb) in (("last", launch_inputs[-1]),):
+        for which, launch in (("last", launch_inputs[-1]),):
             k_ms, p_ms, b_ms, b_by, err = replay_batched(
-                kernels, step, parity, sb, cb, xb, f"server {arm} {which} launch", arm == "float")
+                kernels, step, parity, launch, f"server {arm} {which} launch", arm == "float")
             if arm == "int":
                 worst = max(worst, err)
             else:
                 worst_f = max(worst_f, err)
             rows[kernel].append((k_ms, p_ms, b_ms, b_by))
-        for i, (s, c, x) in enumerate(forced_inputs):
+        for i, launch in enumerate(forced_inputs):
             name = "forced_eval" if arm == "int" else "forced_eval_f32"
-            rows[name].append(replay_forced(kernels, forced, s, c, x,
+            rows[name].append(replay_forced(kernels, forced, launch,
                                             f"server {arm} K4 launch {i}")[:4])
     # the system slice: its K4 launches, and the has_pre launches with the
     # most steps (the fill's scans are held by the int server's replays)
-    for i, (s, c, x) in enumerate(sys_spy.forced):
-        rows["forced_eval"].append(replay_forced(kernels, forced, s, c, x,
+    for i, launch in enumerate(sys_spy.forced):
+        rows["forced_eval"].append(replay_forced(kernels, forced, launch,
                                                  f"system slice K4 launch {i}")[:4])
-    pre = [(launch, n) for launch, n in sys_spy.batched if launch[0][20].shape[2] > 0]
-    pre.sort(key=lambda item: -item[1])
-    for i, ((sb, cb, xb), _) in enumerate(pre[:2]):
+    pre = [launch for launch in sys_spy.batched if launch[0].dims["C"] > 0]
+    pre.sort(key=lambda launch: -evicting_steps(launch))
+    for i, launch in enumerate(pre[:2]):
         rows["place_scan_has_pre"].append(replay_batched(
-            kernels, step, parity, sb, cb, xb, f"system slice has_pre launch {i}", False)[:4])
+            kernels, step, parity, launch, f"system slice has_pre launch {i}", False)[:4])
     stamp("replays done")
 
     mean = lambda v: sum(v) / len(v)  # noqa: E731

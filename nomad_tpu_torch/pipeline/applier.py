@@ -56,7 +56,7 @@ from .redispatch import Redispatcher, WaveEncodeRegistry
 from ..utils.lock_witness import witness_lock
 from ..utils.race_witness import tracked_dict, tracked_list
 
-logger = logging.getLogger("nomad_tpu.pipeline.applier")
+logger = logging.getLogger("nomad_tpu_torch.pipeline.applier")
 
 
 class _Wave:

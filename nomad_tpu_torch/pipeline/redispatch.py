@@ -50,7 +50,7 @@ from ..trace import lifecycle as _lifecycle
 from ..utils import metrics
 from ..utils.lock_witness import witness_lock
 
-logger = logging.getLogger("nomad_tpu.pipeline.redispatch")
+logger = logging.getLogger("nomad_tpu_torch.pipeline.redispatch")
 
 # remembered encodes are references into arrays the engine already
 # holds; the cap only bounds bookkeeping, not array memory

@@ -99,7 +99,7 @@ class EvalContext:
                  deterministic: bool = False, ring_seed: int = 0) -> None:
         self.state = state
         self.plan = plan
-        self.logger = logger or logging.getLogger("nomad_tpu.scheduler")
+        self.logger = logger or logging.getLogger("nomad_tpu_torch.scheduler")
         self.metrics = AllocMetric()
         self.eligibility: Optional[EvalEligibility] = None
         # caches

@@ -92,7 +92,7 @@ _VALID_TRIGGERS = {
 class GenericScheduler:
     def __init__(self, logger, state, planner, batch: bool,
                  deterministic: bool = False) -> None:
-        self.logger = logger or logging.getLogger("nomad_tpu.scheduler.generic")
+        self.logger = logger or logging.getLogger("nomad_tpu_torch.scheduler.generic")
         self.state = state
         self.planner = planner
         self.batch = batch

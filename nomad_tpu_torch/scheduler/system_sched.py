@@ -76,7 +76,7 @@ _VALID_TRIGGERS = {
 
 class SystemScheduler:
     def __init__(self, logger, state, planner, deterministic: bool = False) -> None:
-        self.logger = logger or logging.getLogger("nomad_tpu.scheduler.system")
+        self.logger = logger or logging.getLogger("nomad_tpu_torch.scheduler.system")
         self.state = state
         self.planner = planner
         self.deterministic = deterministic

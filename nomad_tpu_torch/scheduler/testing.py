@@ -33,7 +33,7 @@ class Harness:
         self.reblock_evals: List[Evaluation] = []
         self._lock = threading.Lock()
         self._next_index = 1
-        self.logger = logging.getLogger("nomad_tpu.scheduler.harness")
+        self.logger = logging.getLogger("nomad_tpu_torch.scheduler.harness")
 
     def next_index(self) -> int:
         with self._lock:

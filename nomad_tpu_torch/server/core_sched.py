@@ -33,7 +33,7 @@ class CoreScheduler:
     def __init__(self, server, snapshot) -> None:
         self.server = server
         self.snapshot = snapshot
-        self.logger = logging.getLogger("nomad_tpu.core_sched")
+        self.logger = logging.getLogger("nomad_tpu_torch.core_sched")
 
     def process(self, evaluation: Evaluation) -> None:
         job_id = evaluation.job_id

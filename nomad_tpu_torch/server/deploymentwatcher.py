@@ -72,7 +72,7 @@ class DeploymentsWatcher:
     def __init__(self, server, poll_interval: float = 1.0) -> None:
         self.server = server
         self.poll_interval = poll_interval
-        self.logger = logging.getLogger("nomad_tpu.deploymentwatcher")
+        self.logger = logging.getLogger("nomad_tpu_torch.deploymentwatcher")
         self._enabled = False
         self._thread: Optional[threading.Thread] = None
         self._generation = 0

@@ -54,7 +54,7 @@ class NodeDrainer:
     def __init__(self, server, poll_interval: float = 1.0) -> None:
         self.server = server
         self.poll_interval = poll_interval
-        self.logger = logging.getLogger("nomad_tpu.drainer")
+        self.logger = logging.getLogger("nomad_tpu_torch.drainer")
         self._enabled = False
         self._thread: Optional[threading.Thread] = None
         self._generation = 0

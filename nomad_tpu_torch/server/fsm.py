@@ -61,7 +61,7 @@ ACL_TOKEN_BOOTSTRAP = "acl-token-bootstrap"
 class NomadFSM:
     def __init__(self, state: Optional[StateStore] = None, logger=None) -> None:
         self.state = state or StateStore()
-        self.logger = logger or logging.getLogger("nomad_tpu.fsm")
+        self.logger = logger or logging.getLogger("nomad_tpu_torch.fsm")
         # leader-only hooks, set by the server when it holds leadership
         self.on_eval_upserted: Optional[Callable[[Evaluation], None]] = None
         self.on_capacity_change: Optional[Callable[[str, int], None]] = None
@@ -225,7 +225,7 @@ class NomadFSM:
                 for block in payload.get("dense_placements", []):
                     committed_dense += len(block.ids)
             except Exception as e:  # noqa: BLE001 — isolate to this plan
-                logging.getLogger("nomad_tpu.fsm").exception(
+                logging.getLogger("nomad_tpu_torch.fsm").exception(
                     "plan payload in batch failed to apply"
                 )
                 errors.append(str(e) or e.__class__.__name__)

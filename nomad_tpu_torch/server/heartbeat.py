@@ -30,7 +30,7 @@ class HeartbeatTimers:
         self.server = server
         self.min_ttl = min_ttl
         self.max_ttl = max_ttl
-        self.logger = logging.getLogger("nomad_tpu.heartbeat")
+        self.logger = logging.getLogger("nomad_tpu_torch.heartbeat")
         self._lock = witness_lock("heartbeat.HeartbeatTimers._lock")
         self._timers: Dict[str, threading.Timer] = {}
         self.enabled = False

@@ -139,7 +139,7 @@ class PeriodicDispatch:
 
     def __init__(self, server) -> None:
         self.server = server
-        self.logger = logging.getLogger("nomad_tpu.periodic")
+        self.logger = logging.getLogger("nomad_tpu_torch.periodic")
         self._lock = witness_lock("periodic.PeriodicDispatch._lock")
         self._cond = threading.Condition(self._lock)
         self.enabled = False

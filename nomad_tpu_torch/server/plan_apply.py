@@ -116,7 +116,7 @@ class Planner:
         self.peer = peer
         self.fsm = fsm
         self.plan_queue = plan_queue
-        self.logger = logger or logging.getLogger("nomad_tpu.planner")
+        self.logger = logger or logging.getLogger("nomad_tpu_torch.planner")
         # max queued plans grouped into one raft entry (see _run)
         self.batch_max = max(1, int(batch_max))
         self._stop = threading.Event()

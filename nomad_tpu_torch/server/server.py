@@ -238,7 +238,7 @@ class Server:
 
         resolve_device(self.config.device)
         self.name = name
-        self.logger = logging.getLogger(f"nomad_tpu.server.{name}")
+        self.logger = logging.getLogger(f"nomad_tpu_torch.server.{name}")
 
         self.fsm = NomadFSM()
         # watch hub on EVERY replica (not leader-gated): followers notify

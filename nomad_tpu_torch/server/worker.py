@@ -36,7 +36,7 @@ class Worker:
     def __init__(self, server, worker_id: int) -> None:
         self.server = server
         self.id = worker_id
-        self.logger = logging.getLogger(f"nomad_tpu.worker.{worker_id}")
+        self.logger = logging.getLogger(f"nomad_tpu_torch.worker.{worker_id}")
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         # set per-eval while scheduling

@@ -21,9 +21,14 @@ Port of ``nomad_tpu/tpu/batcher.py``: ``pad_encoded``,
 ``_pad_and_stack``, ``_buckets``, the gather loop and the demand-aware
 ``expect`` are copied (numpy). What differs:
 
-  * the batched scan is ``kernels.place_scan_batched`` on ``device``
-    (``_scan_fn`` there); its fence is a synchronize of the stream the
-    launch went on;
+  * a batch is not padded and stacked array by array: ``pack_batch``
+    writes the padded, stacked batch straight into one reused host slab
+    (pinned on CUDA; ``pad_encoded``'s fills and value remaps, one slice
+    assignment per array per eval) and moves it with ONE copy on the
+    dispatcher's own stream; ``kernels.place_scan_batched_packed`` reads
+    it through offsets and writes every output into one buffer, brought
+    back with one copy (``pad_encoded`` and ``_pad_and_stack`` stay as
+    the reference the slab is tested against);
   * there are no shapes to compile, so there is no bucket prewarming:
     the kernels are built (``kernels.build_all``) at the first batch;
     ``has_warmed()`` keeps its meaning: at least one batch completed;
@@ -41,23 +46,30 @@ re-asserts the tier's gate with ``assert_chunk_gate`` (copied from
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import queue
 import threading
 import time
+from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..chaos.injector import fire as chaos_fire
 from ..utils.lock_witness import witness_lock
 from ..utils.race_witness import tracked_dict
 from . import kernels
-from .convert import DeviceLike, resolve_device, scan_inputs_to_torch
+from .convert import DeviceLike, HostSlab, from_device_packed, put_bytes, resolve_device
 from .engine import EncodedEval, _round_up
 from .intscore import E27_ONE as _E27_NEUTRAL
 
-logger = logging.getLogger("nomad_tpu.tpu.batcher")
+logger = logging.getLogger("nomad_tpu_torch.tpu.batcher")
+
+#: a batch's host sections (``DeviceBatcher.section_profile``): the slab
+#: write, the copy in, the launch with its synchronize, the copy back
+BATCH_SECTIONS = ("slab", "h2d", "launch", "d2h")
 
 
 def _pow2ceil(x: int) -> int:
@@ -253,6 +265,215 @@ def pad_encoded(enc: EncodedEval, n_pad: int, g_pad: int, s_pad: int,
     return static, carry, xs
 
 
+def batch_dims(encs: List[EncodedEval]) -> Dict[str, object]:
+    """The shared bucketed dims of a batch of evals of one dtype:
+    ``pad_encoded``'s keyword arguments."""
+    # G always gets a padded slot so padded steps have a pre-failed TG to
+    # point at
+    g_pad = _pow2ceil(max(e.g for e in encs) + 1)
+    # S stays ZERO when no co-batched eval has spreads; mixed batches
+    # widen — same pattern as the affinity axis
+    s_raw = max(e.s for e in encs)
+    # COARSE placement-count buckets (16/64/256/1024, pow2 beyond)
+    p_raw = max(e.p for e in encs)
+    p_pad = (
+        16 if p_raw <= 16 else 64 if p_raw <= 64
+        else 256 if p_raw <= 256 else 1024 if p_raw <= 1024
+        else _pow2ceil(p_raw)
+    )
+    d_pad = max(e.static[0].shape[1] for e in encs)
+    # absent-feature axes stay ZERO when the whole batch lacks them;
+    # mixed batches widen; the preemption candidate axis is zero when no
+    # co-batched eval preempts
+    prec_raw = max(e.static[20].shape[1] for e in encs)
+    prec_pad = _pow2ceil(prec_raw) if prec_raw else 0
+    return dict(
+        n_pad=max(_round_up(e.n_real) for e in encs), g_pad=g_pad,
+        s_pad=_pow2ceil(s_raw) if s_raw else 0,
+        v_pad=_pow2ceil(max(max(e.v for e in encs), 2)), p_pad=p_pad,
+        dtype=encs[0].dtype, d_pad=d_pad,
+        k_pad=max(e.xs[1].shape[1] for e in encs),
+        aff_pad=g_pad if max(e.static[4].shape[0] for e in encs) else 0,
+        evd_pad=d_pad if max(e.xs[3].shape[1] for e in encs) else 0,
+        fac_pad=max(e.xs[7].shape[1] for e in encs),
+        dpd_pad=max(e.static[17].shape[0] for e in encs),
+        dpv_pad=max(e.carry[8].shape[1] for e in encs),
+        fnd_pad=max(e.xs[9].shape[1] for e in encs),
+        prec_pad=prec_pad,
+        pregp_pad=(_pow2ceil(max(max(e.carry[11].shape[0] for e in encs), 1))
+                   if prec_pad else 0),
+    )
+
+
+def _slab_entries(enc: EncodedEval, d: Dict[str, object]):
+    """One eval's 48 arrays as ``pad_encoded`` pads them, without
+    padding: per array ``(data, pads, fill, dtype)``, the data written
+    at the block's origin (after ``pad_encoded``'s value remaps), the
+    amount padded after each axis, the pad value, and the dtype it is
+    cast to (None: its own)."""
+    (totals, reserved, asks, feat_packed, aff_score, desired_counts,
+     dh_job, dh_tg, limits, spread_vids, spread_desired, spread_weights,
+     spread_has_targets, spread_active, sum_spread_weights, n_real,
+     e_ask, dp_vids, dp_limit, dp_applies,
+     pre_res, pre_prio, pre_elig, pre_mp, pre_gid, pre_evf) = enc.static
+    (used0, tg_counts0, job_counts0, spread_counts0, spread_entry0,
+     offset0, failed0, e_base0, dp_counts0,
+     pre_alive0, pre_remaining0, pre_counts0) = enc.carry
+    (tg_idx, penalty_idx, evict_node, evict_res, evict_tg,
+     limit_p, sum_sw_p, ev_factor, rev_factor, forced_node) = enc.xs
+    n_pad, g_pad, p_pad = d["n_pad"], d["g_pad"], d["p_pad"]
+    v_pad, prec_pad, dpd_pad = d["v_pad"], d["prec_pad"], d["dpd_pad"]
+    dpv_pad, fac_pad = d["dpv_pad"], d["fac_pad"]
+    dn, dg, ds = n_pad - enc.n_pad, g_pad - enc.g, d["s_pad"] - enc.s
+    dv, dp = v_pad - enc.v, p_pad - enc.p
+    dd = (d["d_pad"] or totals.shape[1]) - totals.shape[1]
+    if dp and g_pad <= enc.g:
+        raise ValueError("pack_batch: padded steps need a pre-failed task-group slot")
+    f, i32, neutral = np.dtype(d["dtype"]), np.dtype(np.int32), _E27_NEUTRAL
+    dc = lambda a: prec_pad - a.shape[1]  # noqa: E731 — the candidate axis
+    return (
+        (totals, (dn, dd), 0, f),
+        (reserved, (dn if reserved.shape[0] else 0, dd), 0, f),
+        (asks, (dg, dd), 0, f),
+        (feat_packed, (dg, dn), 0, None),
+        (aff_score, (d["aff_pad"] - aff_score.shape[0], dn), 0, f),
+        (desired_counts, (dg,), 1, None),
+        (dh_job, (dg,), False, None),
+        (dh_tg, (dg,), False, None),
+        (limits, (dg,), 0, None),
+        # this eval's invalid vocab bucket (v0-1) onto the batch's (v_pad-1)
+        (np.where(spread_vids >= enc.v - 1, v_pad - 1, spread_vids), (dg, ds, dn), v_pad - 1, i32),
+        (spread_desired, (dg, ds, dv), -1.0, f),
+        (spread_weights, (dg, ds), 0, f),
+        (spread_has_targets, (dg, ds), False, None),
+        (spread_active, (dg, ds), False, None),
+        (sum_spread_weights, (dg,), 0, f),
+        (n_real, (), 0, i32),
+        (e_ask, ((g_pad - e_ask.shape[0], n_pad - e_ask.shape[1], 0) if e_ask.shape[0]
+                 else (0, 0, 0)), neutral, None),
+        # this eval's MISSING distinct_property bucket onto the batch's
+        (np.where(dp_vids >= dp_counts0.shape[1] - 1, dpv_pad - 1, dp_vids)
+         if dp_vids.shape[0] else dp_vids.reshape(0, enc.n_pad),
+         (dpd_pad - dp_vids.shape[0], dn), dpv_pad - 1, None),
+        (dp_limit, (dpd_pad - dp_limit.shape[0],), 1, None),
+        (dp_applies, (dg, dpd_pad - dp_applies.shape[1]), False, None),
+        (pre_res, (dn, dc(pre_res), 0), 0, None),
+        (pre_prio, (dn, dc(pre_prio)), 0, None),
+        (pre_elig, (dn, dc(pre_elig)), False, None),
+        (pre_mp, (dn, dc(pre_mp)), 0, None),
+        (pre_gid, (dn, dc(pre_gid)), 0, None),
+        (pre_evf, (dn, dc(pre_evf), 0), neutral, None),
+        (used0, (dn, dd), 0, f),
+        (tg_counts0, (dg, dn), 0, None),
+        (job_counts0, (dn,), 0, None),
+        (spread_counts0, (dg, ds, dv), 0, f),
+        (spread_entry0, (dg, ds, dv), False, None),
+        (offset0, (), 0, i32),
+        # padded TG slots are pre-failed -> padded steps are no-ops
+        (failed0, (dg,), True, None),
+        (e_base0, (dn if e_base0.shape[0] else 0, 0), neutral, None),
+        (dp_counts0, (dpd_pad - dp_counts0.shape[0], dpv_pad - dp_counts0.shape[1]), 0, None),
+        (pre_alive0, (dn, dc(pre_alive0)), False, None),
+        # zero-HEIGHT rows without candidate tables; a preempt batch
+        # needs full rows (zeros)
+        ((pre_remaining0, (dn, 0), 0, None) if pre_remaining0.shape[0]
+         else (np.zeros((0, 3), np.int64), (n_pad if prec_pad else 0, 0), 0, None)),
+        (pre_counts0, (d["pregp_pad"] - pre_counts0.shape[0],), 0, None),
+        # padded steps point at the first padded (pre-failed) TG slot
+        (tg_idx, (dp,), enc.g, None),
+        (penalty_idx, (dp, d["k_pad"] - penalty_idx.shape[1]), -1, None),
+        (evict_node, (dp,), -1, None),
+        (evict_res, (dp, d["evd_pad"] - evict_res.shape[1]), 0, f),
+        (evict_tg, (dp,), -1, None),
+        (limit_p, (dp,), 0, None),
+        (sum_sw_p, (dp,), 1.0, f),
+        (ev_factor, (dp, fac_pad - ev_factor.shape[1]), neutral, None),
+        (rev_factor, (dp, fac_pad - rev_factor.shape[1]), neutral, None),
+        (forced_node, (dp, d["fnd_pad"] - forced_node.shape[1]), -1, None),
+    )
+
+
+def _write_slab(encs: List[EncodedEval], dims: Dict[str, object], b_pad: int,
+                slab: HostSlab):
+    """Write the padded, stacked batch into ``slab``: each of the 48
+    arrays a ``[b_pad, ...]`` block at a 16-byte offset, filled with its
+    pad value, each eval's data written at the block's origin with one
+    slice assignment, the filler evals (``b_pad`` past the batch) copies
+    of eval 0 with every task group failed, as ``_pad_and_stack`` makes
+    them. Returns the layout, its end in bytes and the blocks (numpy
+    views of the slab)."""
+    entries = [_slab_entries(e, dims) for e in encs]
+    layout, off = [], 0
+    for k, first in enumerate(entries[0]):
+        shapes = set()
+        for ent in entries:
+            data, pads, _fill, dt = ent[k]
+            data = np.asarray(data)
+            if min(pads, default=0) < 0:
+                raise ValueError(f"pack_batch: array {k} is wider than the batch's dims")
+            shapes.add(tuple(n + w for n, w in zip(data.shape, pads)))
+        if len(shapes) != 1:
+            raise ValueError(f"pack_batch: array {k} pads to several shapes {sorted(shapes)}")
+        dt = np.result_type(*(np.asarray(ent[k][0]).dtype if ent[k][3] is None else ent[k][3]
+                              for ent in entries))
+        off = -(-off // 16) * 16
+        layout.append((off, dt, (b_pad, *shapes.pop())))
+        off += int(np.prod(layout[-1][2], dtype=np.int64)) * dt.itemsize
+    raw = slab.take(off)
+    # every write holds the GIL where it can (convert.put_bytes): the
+    # dispatcher shares it with the server's busy worker threads
+    mv = memoryview(raw)
+    blocks = []
+    for k, (o, dt, shape) in enumerate(layout):
+        block = np.ndarray(shape, dt, raw, o)
+        blocks.append(block)
+        row = block[0].nbytes
+        fill0 = entries[0][k][2]
+        mv[o:o + block.nbytes] = np.array(fill0, dt).tobytes() * block.size
+        for b, ent in enumerate(entries):
+            data, _pads, fill, _dt = ent[k]
+            if fill != fill0:
+                mv[o + b * row:o + (b + 1) * row] = np.array(fill, dt).tobytes() * block[0].size
+            data = np.asarray(data, dt)
+            if data.shape[1:] == block.shape[2:]:  # the eval's data is the row's head
+                put_bytes(mv, o + b * row, data)
+            else:
+                block[(b, *(slice(0, n) for n in data.shape))] = data
+        for f in range(len(encs), b_pad):
+            mv[o + f * row:o + (f + 1) * row] = mv[o:o + row]
+            if k == kernels._SCAN_INPUTS["failed"]:  # the fillers' steps all skip
+                block[f] = True
+    return layout, off, blocks
+
+
+def pack_batch(encs: List[EncodedEval], dims: Dict[str, object], b_pad: int,
+               device: DeviceLike = "cuda", slab: Optional[HostSlab] = None,
+               times: Optional[Dict[str, float]] = None) -> kernels.PackedScan:
+    """The batch ``_pad_and_stack`` makes (``dims`` from ``batch_dims``,
+    ``b_pad`` evals with fillers) as one packed buffer on ``device``:
+    written into ``slab`` (a new one when None) and moved with ONE
+    ``non_blocking`` copy on the current stream. ``times`` (a dict)
+    gains the host ms of the slab write (``slab``) and of the copy
+    (``h2d``), which count as the ``pad_stack`` and ``device`` phases."""
+    from ..utils import phases as _phases
+
+    dev = resolve_device(device)
+    if slab is None:
+        slab = HostSlab(pin=dev.type == "cuda")
+    t0 = time.perf_counter()
+    with _phases.track("pad_stack"):
+        layout, nbytes, blocks = _write_slab(encs, dims, b_pad, slab)
+        m = kernels._check_batched(blocks[kernels.SCAN_STATIC], blocks[kernels.SCAN_CARRY],
+                                   blocks[kernels.SCAN_XS])
+    t1 = time.perf_counter()
+    with _phases.track("device"):
+        buf = slab.to_device(nbytes, dev)
+    if times is not None:
+        times["slab"] = times.get("slab", 0.0) + (t1 - t0) * 1e3
+        times["h2d"] = times.get("h2d", 0.0) + (time.perf_counter() - t1) * 1e3
+    return kernels.PackedScan(buf, layout, m)
+
+
 class _Request:
     __slots__ = ("enc", "event", "result", "error", "t_enqueue")
 
@@ -324,6 +545,12 @@ class DeviceBatcher:
         # lazily on the first expect().
         self._expected = 0
         self._demand_aware = False
+        # the dispatcher thread's alone: the host slab batches are packed
+        # into, and its CUDA stream
+        self._slab = HostSlab(pin=self.device.type == "cuda")
+        self._stream = None
+        # host ms of each batch by section (section_profile)
+        self._sections: "deque[Dict[str, float]]" = deque(maxlen=4096)  # guarded-by: _lock
 
     # -- lifecycle -------------------------------------------------------
 
@@ -520,19 +747,28 @@ class DeviceBatcher:
             "note": note,
         }
 
-    def _scan(self, static_b, carry_b, xs_b):
-        """The batched scan on the batcher's device: the numpy batch is
-        copied over, launched, and fenced (a synchronize of the stream
-        the launch went on)."""
-        import torch
+    def _own_stream(self):
+        """The dispatcher's own CUDA stream made current (created at its
+        first batch), so that a batch's copies and launch never queue
+        behind other threads' work; a no-op on the CPU."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        return torch.cuda.stream(self._stream)
 
-        if self.device.type == "cuda":
-            kernels.build_all()
-        st, ca, xs = scan_inputs_to_torch(static_b, carry_b, xs_b, self.device)
-        _carry, ys = kernels.place_scan_batched(st, ca, xs)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        return ys
+    def section_profile(self) -> Dict[str, object]:
+        """Host ms of the recorded batches (the last 4,096) by section
+        (``BATCH_SECTIONS``: the slab write, the copy in, the launch with
+        the stream's synchronize, the copy back): the median and the sum
+        of each."""
+        with self._lock:
+            rows = list(self._sections)
+        out: Dict[str, object] = {"batches": len(rows)}
+        for name in BATCH_SECTIONS:
+            v = sorted(r[name] for r in rows)
+            out[name] = {"median_ms": v[len(v) // 2] if v else 0.0, "sum_ms": sum(v)}
+        return out
 
     def _run_batch(self, batch: List[_Request]) -> None:
         from ..utils import metrics
@@ -540,70 +776,32 @@ class DeviceBatcher:
 
         t_start = metrics.now()
         encs = [r.enc for r in batch]
-        # shared bucketed dims; G always gets a padded slot so padded
-        # steps have a pre-failed TG to point at
-        n_pad = max(_round_up(e.n_real) for e in encs)
-        g_pad = _pow2ceil(max(e.g for e in encs) + 1)
-        # S stays ZERO when no co-batched eval has spreads; mixed
-        # batches widen — same pattern as the affinity axis
-        s_raw = max(e.s for e in encs)
-        s_pad = _pow2ceil(s_raw) if s_raw else 0
-        v_pad = _pow2ceil(max(max(e.v for e in encs), 2))
-        # COARSE placement-count buckets (16/64/256/1024, pow2 beyond)
-        p_raw = max(e.p for e in encs)
-        p_pad = (
-            16 if p_raw <= 16 else 64 if p_raw <= 64
-            else 256 if p_raw <= 256 else 1024 if p_raw <= 1024
-            else _pow2ceil(p_raw)
-        )
-        d_pad = max(e.static[0].shape[1] for e in encs)
-        # absent-feature axes stay ZERO when the whole batch lacks them;
-        # mixed batches widen
-        k_pad = max(e.xs[1].shape[1] for e in encs)
-        aff_raw = max(e.static[4].shape[0] for e in encs)
-        aff_pad = g_pad if aff_raw else 0
-        evd_raw = max(e.xs[3].shape[1] for e in encs)
-        evd_pad = d_pad if evd_raw else 0
-        fac_pad = max(e.xs[7].shape[1] for e in encs)
-        dpd_pad = max(e.static[17].shape[0] for e in encs)
-        dpv_pad = max(e.carry[8].shape[1] for e in encs)
-        fnd_pad = max(e.xs[9].shape[1] for e in encs)
-        # preemption candidate axis: zero when no co-batched eval preempts
-        prec_raw = max(e.static[20].shape[1] for e in encs)
-        prec_pad = _pow2ceil(prec_raw) if prec_raw else 0
-        pregp_pad = (
-            _pow2ceil(max(max(e.carry[11].shape[0] for e in encs), 1))
-            if prec_pad else 0
-        )
-        dtype = encs[0].dtype  # dispatch loop groups by dtype
-
-        with _phases.track("pad_stack"):
-            static_b, carry_b, xs_b, b, b_pad = self._pad_and_stack(
-                encs, n_pad, g_pad, s_pad, v_pad, p_pad, dtype, d_pad,
-                k_pad, aff_pad, evd_pad, fac_pad, dpd_pad, dpv_pad, fnd_pad,
-                prec_pad, pregp_pad,
-            )
-
-        t_stack = metrics.now()
-        metrics.measure_since("nomad.device_batcher.pad_stack", t_start)
-        with _phases.track("device"):
-            chosen, scores, pulls, skipped, evict = self._scan(
-                static_b, carry_b, xs_b)
-            t_compute = metrics.now()
-            chosen = chosen.cpu().numpy()
-            scores = scores.cpu().numpy()
-            pulls = pulls.cpu().numpy()
-            skipped = skipped.cpu().numpy()
-            evict = evict.cpu().numpy()
-            t_transfer = metrics.now()
-        metrics.measure_since("nomad.device_batcher.dispatch", t_stack)
-        metrics.add_sample(
-            "nomad.device_batcher.compute", (t_compute - t_stack) * 1000.0
-        )
-        metrics.add_sample(
-            "nomad.device_batcher.transfer",
-            (t_transfer - t_compute) * 1000.0,
-        )
+        # shared bucketed dims; the dispatch loop groups by dtype
+        dims = batch_dims(encs)
+        b = len(encs)
+        # Three batch buckets — 1, max/4, max.
+        b_pad = min(x for x in self._buckets() if x >= b)
+        if self.device.type == "cuda":
+            kernels.build_all()
+        times: Dict[str, float] = {}
+        with self._own_stream():
+            # the slab write (pad_stack) and its one copy in (device)
+            packed = pack_batch(encs, dims, b_pad, self.device, self._slab, times)
+            with _phases.track("device"):
+                t0 = time.perf_counter()
+                out, out_layout = kernels.place_scan_batched_packed(packed)
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+                t1 = time.perf_counter()
+                chosen, scores, pulls, skipped, evict = from_device_packed(out, out_layout)
+                t2 = time.perf_counter()
+        times["launch"] = (t1 - t0) * 1e3
+        times["d2h"] = (t2 - t1) * 1e3
+        compute_ms = times["h2d"] + times["launch"]
+        metrics.add_sample("nomad.device_batcher.pad_stack", times["slab"])
+        metrics.add_sample("nomad.device_batcher.dispatch", compute_ms + times["d2h"])
+        metrics.add_sample("nomad.device_batcher.compute", compute_ms)
+        metrics.add_sample("nomad.device_batcher.transfer", times["d2h"])
         d2h_bytes = (
             chosen.nbytes + scores.nbytes + pulls.nbytes + skipped.nbytes
             + evict.nbytes
@@ -614,10 +812,11 @@ class DeviceBatcher:
             self.stats["evals"] += b
             self.stats["padded_evals"] += b_pad - b
             self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"], b)
-            self.stats["pad_stack_ms_total"] += (t_stack - t_start) * 1000.0
-            self.stats["compute_ms_total"] += (t_compute - t_stack) * 1000.0
-            self.stats["transfer_ms_total"] += (t_transfer - t_compute) * 1000.0
+            self.stats["pad_stack_ms_total"] += times["slab"]
+            self.stats["compute_ms_total"] += compute_ms
+            self.stats["transfer_ms_total"] += times["d2h"]
             self.stats["d2h_bytes_total"] += d2h_bytes
+            self._sections.append(times)
             for req in batch:
                 # t_start and t_enqueue share the monotonic clock
                 wait_ms = (t_start - req.t_enqueue) * 1000.0
@@ -638,6 +837,8 @@ class DeviceBatcher:
     def _pad_and_stack(self, encs, n_pad, g_pad, s_pad, v_pad, p_pad, dtype,
                        d_pad, k_pad, aff_pad, evd_pad, fac_pad, dpd_pad,
                        dpv_pad, fnd_pad, prec_pad=0, pregp_pad=0):
+        """The batch as ``pad_encoded`` pads each eval and ``np.stack``
+        stacks it: the plain reference ``pack_batch`` is held against."""
         padded = [
             pad_encoded(e, n_pad, g_pad, s_pad, v_pad, p_pad, dtype, d_pad,
                         k_pad, aff_pad, evd_pad, fac_pad, dpd_pad, dpv_pad,

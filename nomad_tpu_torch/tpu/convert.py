@@ -11,11 +11,13 @@ scan and the port the same numpy arrays through them.
 at a 16-byte aligned offset) and view it back as tensors of the same
 dtypes and shapes: ``to_device_packed`` moves a whole encode to the card
 with ONE copy from pinned host memory, and ``from_device_packed`` brings
-a packed buffer of outputs back with one copy.
+a packed buffer of outputs back with one copy. ``HostSlab`` is a reused
+host buffer that a caller packs a batch into itself (the batcher's
+``pack_batch``) and moves with one copy.
 """
 from __future__ import annotations
 
-from typing import Iterable, List, Sequence, Tuple, Union
+from typing import Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -66,25 +68,33 @@ _TORCH_OF = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.fl
              np.dtype(np.bool_): torch.bool, np.dtype(np.int16): torch.int16}
 
 
+def put_bytes(dst: memoryview, off: int, a) -> None:
+    """Copy the bytes of the numpy array ``a`` (C order) into ``dst`` at
+    ``off``, holding the GIL: numpy lets go of it for a copy of more than
+    500 elements, and where other threads are busy each such copy then
+    waits up to a switch interval (5 ms) to take it back; a memoryview
+    copy is one memcpy that keeps it."""
+    a = np.ascontiguousarray(a)
+    if a.nbytes:
+        dst[off:off + a.nbytes] = memoryview(a).cast("B")
+
+
 def pack(arrays: Sequence, pin: bool = False) -> Tuple[torch.Tensor, Layout]:
     """Copy each numpy array (or scalar) into one uint8 host tensor, each
-    at a 16-byte aligned offset, with one ``np.concatenate``; pinned when
-    ``pin`` (needs CUDA). Returns the buffer and its layout."""
+    at a 16-byte aligned offset (``put_bytes``: the GIL is held
+    throughout); pinned when ``pin`` (needs CUDA). Returns the buffer and
+    its layout."""
     arrs = [np.asarray(a) for a in arrays]
     layout: Layout = []
-    parts = []
     off = 0
     for a in arrs:
-        pad = -off % 16
-        if pad:
-            parts.append(np.zeros(pad, np.uint8))
-        off += pad
+        off += -off % 16
         layout.append((off, a.dtype, tuple(a.shape)))
-        parts.append(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
         off += a.nbytes
     buf = torch.empty(max(off, 1), dtype=torch.uint8, pin_memory=pin)
-    if off:
-        np.concatenate(parts, out=buf.numpy()[:off])
+    raw = memoryview(buf.numpy())
+    for (o, _dt, _shape), a in zip(layout, arrs):
+        put_bytes(raw, o, a)
     return buf, layout
 
 
@@ -116,7 +126,8 @@ def to_device_packed(arrays: Sequence, device: DeviceLike = "cuda") -> Tuple[tor
 def from_device_packed(buf: torch.Tensor, layout: Layout) -> Tuple[np.ndarray, ...]:
     """The arrays of ``layout`` in ``buf`` back as numpy arrays with one
     copy: on CUDA into pinned host memory on the current stream, which
-    is then synchronized."""
+    is then synchronized. Each array is then copied out of it holding
+    the GIL (a ``bytearray`` of its bytes; see ``put_bytes``)."""
     end = max((o + int(np.prod(shape, dtype=np.int64)) * dt.itemsize
                for o, dt, shape in layout), default=0)
     if buf.device.type == "cuda":
@@ -125,6 +136,43 @@ def from_device_packed(buf: torch.Tensor, layout: Layout) -> Tuple[np.ndarray, .
         torch.cuda.current_stream(buf.device).synchronize()
     else:
         host = buf
-    raw = host.numpy()
-    return tuple(raw[o:o + int(np.prod(shape, dtype=np.int64)) * dt.itemsize]
-                 .view(dt).reshape(shape).copy() for o, dt, shape in layout)
+    raw = memoryview(host.numpy())
+    out = []
+    for o, dt, shape in layout:
+        n = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+        out.append(np.frombuffer(bytearray(raw[o:o + n]), dt).reshape(shape))
+    return tuple(out)
+
+
+class HostSlab:
+    """A reused host buffer to pack into, pinned when it feeds a CUDA
+    device. ``take(nbytes)`` returns it as a numpy uint8 array of at
+    least ``nbytes`` once the last copy out of it has finished (an event
+    recorded behind that copy), growing it to the next power of two
+    where it is short; ``to_device(nbytes, device)`` moves its first
+    ``nbytes`` with ONE ``non_blocking`` copy on the current stream and
+    records that event (on the CPU, one copy too: what it returns never
+    aliases the slab). One thread uses a slab at a time."""
+
+    def __init__(self, pin: bool) -> None:
+        self.pin = pin
+        self._buf: Optional[torch.Tensor] = None
+        self._event = None
+
+    def take(self, nbytes: int) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        if self._buf is None or self._buf.numel() < nbytes:
+            self._buf = torch.empty(1 << max(nbytes - 1, 0).bit_length(), dtype=torch.uint8,
+                                    pin_memory=self.pin)
+        return self._buf.numpy()
+
+    def to_device(self, nbytes: int, device: torch.device) -> torch.Tensor:
+        host = self._buf[:max(nbytes, 1)]
+        if device.type != "cuda":
+            return host.clone()
+        out = host.to(device, non_blocking=True)
+        if self._event is None:
+            self._event = torch.cuda.Event()
+        self._event.record(torch.cuda.current_stream(device))
+        return out

@@ -18,12 +18,21 @@
 //         the same way.
 // Padded placements carry forced_node = -1 and come out chosen = -1.
 //
-// What bounds it on an H100: about 80 bytes per placement (the node's
-// capacity, usage and counts rows, its feature byte and two Q27 factors)
-// and a few dozen operations, so ~0.4 MB at P = 5,000: ~0.13 us at 3.35
-// TB/s. The launch itself (a few microseconds) dominates; the design does
-// nothing about it beyond being a single launch where the scan took P
-// sequential steps.
+// What bounds it on an H100: not the card. The work is about 80 bytes
+// per placement (the node's capacity, usage and counts rows, its feature
+// byte and two Q27 factors) and a few dozen operations, ~0.4 MB at
+// P = 5,000: ~0.13 us at 3.35 TB/s. What a system eval pays is the launch
+// (a few microseconds) and the two copies around it, so the design takes
+// away everything else: the wrapper (kernels.forced_eval_packed) reads the
+// 16 input arrays from ONE packed buffer that came over in one pinned copy
+// (kernels.pack_forced_inputs), passes pointers into it (no tensor per
+// array), writes chosen and scores into one output buffer brought back in
+// one copy, and makes the constant pulls / skipped / evict on the host.
+// P is taken as it is (no bucket pad). A block of 128 threads spreads
+// P = 5,000 over 40 SMs; n_real is read once per block; each placement's
+// gather (its node's rows, its task group's flags) sits in one place,
+// through the read-only cache. A CUDA graph would not help: one launch
+// whose P changes from eval to eval has nothing to replay.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -63,10 +72,15 @@ template <typename T> struct ScoreOf;
 template <> struct ScoreOf<int32_t> { using type = long long; };
 template <> struct ScoreOf<float> { using type = float; };
 
+constexpr int kThreads = 128;
+
 template <typename T>
-__global__ void forced_eval_kernel(const ForcedArgs a) {
+__global__ void __launch_bounds__(kThreads) forced_eval_kernel(const ForcedArgs a) {
   using Score = typename ScoreOf<T>::type;
   constexpr bool kFloat = sizeof(Score) == 4;
+  __shared__ int s_n_real;
+  if (threadIdx.x == 0) s_n_real = __ldg(a.n_real);
+  __syncthreads();
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= a.P) return;
   const int N = a.N, D = a.D;
@@ -76,39 +90,60 @@ __global__ void forced_eval_kernel(const ForcedArgs a) {
   const T* used = static_cast<const T*>(a.used);
   Score* scores = static_cast<Score*>(a.scores);
 
-  const int j = a.forced_node[p];
-  const int g = a.tg_idx[p];
-  if (j < 0 || j >= a.n_real[0] || a.failed[g]) {
+  const int j = __ldg(a.forced_node + p);
+  const int g = __ldg(a.tg_idx + p);
+  if (j < 0 || j >= s_n_real || __ldg(a.failed + g)) {
     a.chosen[p] = -1;
     scores[p] = (Score)0;
     return;
   }
+  // the gather: the task group's flags, the node's counts and feature
+  // byte, in the int arm its two Q27 factor rows, then its capacity rows
+  // dim by dim
+  const int desired = __ldg(a.desired + g);
+  const bool dh_job = __ldg(a.dh_job + g), dh_tg = __ldg(a.dh_tg + g);
+  const int jc = __ldg(a.job_counts + j);
+  const int tgc = __ldg(a.tg_counts + (size_t)g * N + j);
+  const uint8_t feat = __ldg(a.feat + (size_t)g * N + j);
+  int32_t eb[2] = {0, 0}, ea[2] = {0, 0};
+  if constexpr (!kFloat) {
+    for (int d = 0; d < 2; ++d) {
+      eb[d] = __ldg(a.e_base + j * 2 + d);
+      ea[d] = __ldg(a.e_ask + ((size_t)g * N + j) * 2 + d);
+    }
+  }
   bool fits = true;
-  T util_cm[2] = {(T)0, (T)0};
+  T util_cm[2] = {(T)0, (T)0}, tot_cm[2] = {(T)0, (T)0}, res_cm[2] = {(T)0, (T)0};
   for (int d = 0; d < D; ++d) {
-    T util = used[j * D + d];
+    const T tot = __ldg(totals + j * D + d);
+    const T res = reserved ? __ldg(reserved + j * D + d) : (T)0;
+    const T ask = __ldg(asks + g * D + d);
+    T util = __ldg(used + j * D + d);
     if constexpr (kFloat) {
       // (used + reserved) + ask, engine.py:922
-      if (reserved) util = __fadd_rn(util, reserved[j * D + d]);
-      util = __fadd_rn(util, asks[g * D + d]);
+      if (reserved) util = __fadd_rn(util, res);
+      util = __fadd_rn(util, ask);
     } else {
-      util += asks[g * D + d];
-      if (reserved) util += reserved[j * D + d];
+      util += ask;
+      if (reserved) util += res;
     }
-    if (d < 2) util_cm[d] = util;
-    fits = fits && util <= totals[j * D + d];
+    if (d < 2) {
+      util_cm[d] = util;
+      tot_cm[d] = tot;
+      res_cm[d] = res;
+    }
+    fits = fits && util <= tot;
   }
-  const int jc = a.job_counts[j];
-  const int tgc = a.tg_counts[(size_t)g * N + j];
-  const bool dh = a.dh_job[g] ? (jc == 0) : (a.dh_tg[g] ? !(tgc > 0 && jc > 0) : true);
-  const bool feasible = (a.feat[(size_t)g * N + j] & 1) && fits && dh;
+
+  const bool dh = dh_job ? (jc == 0) : (dh_tg ? !(tgc > 0 && jc > 0) : true);
+  const bool feasible = (feat & 1) && fits && dh;
   const bool anti_present = tgc > 0;
   Score final_score;
   if constexpr (kFloat) {
-    const float node_c = reserved ? __fsub_rn(totals[j * D + 0], reserved[j * D + 0]) : totals[j * D + 0];
-    const float node_m = reserved ? __fsub_rn(totals[j * D + 1], reserved[j * D + 1]) : totals[j * D + 1];
+    const float node_c = reserved ? __fsub_rn(tot_cm[0], res_cm[0]) : tot_cm[0];
+    const float node_m = reserved ? __fsub_rn(tot_cm[1], res_cm[1]) : tot_cm[1];
     const float binpack = binpack_f32(util_cm[0], util_cm[1], node_c, node_m);
-    const float anti = anti_f32(anti_present, tgc, (float)a.desired[g]);
+    const float anti = anti_f32(anti_present, tgc, (float)desired);
     // the scan's sum with its zero reschedule, affinity and spread terms
     float sum = __fadd_rn(binpack, anti);
     sum = __fadd_rn(sum, 0.f);
@@ -116,10 +151,10 @@ __global__ void forced_eval_kernel(const ForcedArgs a) {
     sum = __fadd_rn(sum, 0.f);
     final_score = __fdiv_rn(sum, (float)(1 + (int)anti_present));
   } else {
-    const int32_t* e_ask_g = a.e_ask + (size_t)g * N * 2;
-    const long long desired_g = a.desired[g] > 1 ? a.desired[g] : 1;
+    const long long desired_g = desired > 1 ? desired : 1;
     const long long q_d = (1LL << kRecipBits) / desired_g;
-    const long long binpack = binpack_q30(e_sel(a.e_base, e_ask_g, j, 0), e_sel(a.e_base, e_ask_g, j, 1));
+    // e_sel of the gathered rows (node 0 of a one-node row)
+    const long long binpack = binpack_q30(e_sel(eb, ea, 0, 0), e_sel(eb, ea, 0, 1));
     const long long anti = anti_q30(anti_present, tgc, q_d);
     final_score = (binpack + anti) * (long long)(60 / (1 + (int)anti_present));
   }
@@ -130,7 +165,6 @@ __global__ void forced_eval_kernel(const ForcedArgs a) {
 template <typename T>
 int launch(const ForcedArgs* args, void* stream) {
   if (args->P == 0) return 0;
-  constexpr int kThreads = 256;
   const int blocks = (args->P + kThreads - 1) / kThreads;
   forced_eval_kernel<T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(*args);
   return (int)cudaGetLastError();

@@ -6,17 +6,17 @@ the eval into dense numpy arrays (the encoders of ``encode.py``, the
 encode cache with its single-flight claim) in the eval's arm: int32 when
 the scheduler is deterministic, float32 otherwise (the server's
 default). ``compute_placements`` hands them to the server's
-``DeviceBatcher`` (``batcher.py``: one ``kernels.place_scan_batched``
-launch for up to ``device_batch`` evals) when the scheduler's planner
-has one, else ``run_scan_single`` runs them through
-``kernels.place_scan``; on ``cuda`` that is the hand-written CUDA kernel,
-on ``cpu`` its plain PyTorch version. ``_apply_results`` /
-``_apply_results_dense`` turn the chosen nodes into the Plan, as in the
-JAX engine.
+``DeviceBatcher`` (``batcher.py``: one packed copy and one
+``kernels.place_scan_batched_packed`` launch for up to ``device_batch``
+evals) when the scheduler's planner has one, else ``run_scan_single``
+runs them the same way as a batch of one; on ``cuda`` that is the
+hand-written CUDA kernel, on ``cpu`` its plain PyTorch version.
+``_apply_results`` / ``_apply_results_dense`` turn the chosen nodes into
+the Plan, as in the JAX engine.
 
 System evals: ``compute_system_placements`` encodes one forced node per
 placement. An eval whose forced nodes are all distinct runs the
-scan-free forced-node kernel (``kernels.forced_eval``, K4); a multi-TG
+scan-free forced-node kernel (K4, ``kernels.forced_eval_packed``); a multi-TG
 eval runs the scan. Forced nodes that failed on capacity go through a
 second pass with the preemption candidate tables (the scan's ``has_pre``
 branch), or back to the scheduler's host per-node loop where the
@@ -79,13 +79,7 @@ from ..utils.hostwork import HOST_WORK_SEM as _HOST_WORK_SEM
 from ..utils.lock_witness import witness_lock
 from . import kernels
 from .chunk import chunk_schedule
-from .convert import (
-    DeviceLike,
-    from_device_packed,
-    resolve_device,
-    scan_inputs_to_torch,
-    to_numpy,
-)
+from .convert import DeviceLike, from_device_packed, resolve_device
 from .parity import tg_multiset_divergence
 
 # Partial OCC retries below device_min_placements still ride the device
@@ -105,7 +99,7 @@ from .encode import (
     job_device_dims,
 )
 
-logger = logging.getLogger("nomad_tpu.tpu.engine")
+logger = logging.getLogger("nomad_tpu_torch.tpu.engine")
 
 # Deterministic sampler for the chunked tier's parity spot checks
 # (engine.py:63-68): tests reseed it to make the sampling decision
@@ -345,8 +339,8 @@ class TorchPlacementEngine:
 
     def __init__(self, device: DeviceLike = "cuda") -> None:
         self.device = resolve_device(device)
-        # each calling thread's own CUDA stream for the chunked tier's
-        # copies and launch (never queued behind the batcher's scans)
+        # each calling thread's own CUDA stream for the copies and launches
+        # it makes itself (never queued behind the batcher's scans)
         self._streams = threading.local()
         # the chunked tier's sampled-parity tally (engine.py:1155-1166)
         self._parity_lock = witness_lock("engine.TorchPlacementEngine._parity_lock")
@@ -500,17 +494,20 @@ class TorchPlacementEngine:
         return True
 
     def run_scan_single(self, enc: "EncodedEval"):
-        """Run one encoded eval through ``kernels.place_scan`` on the
-        engine's device; returns numpy (chosen, scores, pulls, skipped,
-        evict)."""
+        """Run one encoded eval through the placement scan on the
+        engine's device, as a batch of one: the encode goes over as ONE
+        packed buffer (``kernels.pack_scan_inputs``), the kernel reads it
+        through offsets (``kernels.place_scan_batched_packed``) and the
+        outputs come back with one copy, on the calling thread's own
+        stream. Returns numpy (chosen, scores, pulls, skipped, evict)."""
         from ..utils import phases as _phases
 
-        static, carry, xs = scan_inputs_to_torch(enc.static, enc.carry, enc.xs,
-                                                 self.device)
-        with _phases.track("device"):
-            _carry, ys = kernels.place_scan(enc.n_pad, static, carry, xs)
-            out = to_numpy(ys)
-        return out
+        with self._thread_stream():
+            packed = kernels.pack_scan_inputs(enc.static, enc.carry, enc.xs, self.device)
+            with _phases.track("device"):
+                out, out_layout = kernels.place_scan_batched_packed(packed)
+                ys = from_device_packed(out, out_layout)
+        return tuple(y[0] for y in ys)
 
     # -- chunked throughput tier ---------------------------------------
 
@@ -574,7 +571,7 @@ class TorchPlacementEngine:
         chunk = int(max(1, min(chunk_k, enc.n_pad)))
         steps_tg, want = chunk_schedule(counts_by_tg, chunk, retry_rounds=retry_rounds)
         deficit = np.zeros(enc.static[2].shape[0], np.int32)
-        with self._chunk_stream():
+        with self._thread_stream():
             packed = kernels.pack_chunk_inputs(enc.n_pad, enc.static, enc.carry,
                                                (steps_tg, want), deficit, chunk, self.device)
             with _phases.track("device"):
@@ -601,9 +598,9 @@ class TorchPlacementEngine:
         evict = np.zeros((p, 0), np.int32)
         return chosen, scores, pulls, skipped, evict
 
-    def _chunk_stream(self):
+    def _thread_stream(self):
         """A context that makes the calling thread's own stream current
-        (created at its first chunked eval); a no-op on the CPU."""
+        (created at its first launch there); a no-op on the CPU."""
         if self.device.type != "cuda":
             return contextlib.nullcontext()
         stream = getattr(self._streams, "stream", None)
@@ -649,34 +646,24 @@ class TorchPlacementEngine:
 
     def run_forced(self, enc: "EncodedEval"):
         """Run one all-distinct forced-node eval through the scan-free
-        kernel (``kernels.forced_eval``, K4; engine.py:1209-1250). The
-        placement axis pads to a pow2 bucket, as in the JAX engine:
-        padded entries carry forced_node = -1, which the kernel maps to
-        chosen = -1, and only the first ``enc.p`` slots are returned."""
+        kernel (K4; engine.py:1209-1250): the 16 arrays it reads go over
+        as ONE packed buffer (``kernels.pack_forced_inputs``), one launch
+        (``kernels.forced_eval_packed``) takes the eval's P placements as
+        they are (no bucket pad), and chosen and scores come back with one
+        copy, on the calling thread's own stream. The scan's other outputs
+        are constant for this shape (pulls 0, nothing skipped, no
+        evictions) and are made here. Returns numpy (chosen, scores,
+        pulls, skipped, evict)."""
         from ..utils import phases as _phases
 
-        p = enc.p
-        p_pad = _round_up(max(p, 1))
-        xs = enc.xs
-        if p_pad != p:
-            def padp(arr, fill):
-                widths = ((0, p_pad - p),) + ((0, 0),) * (arr.ndim - 1)
-                return np.pad(arr, widths, constant_values=fill)
-
-            (tg_idx, penalty_idx, evict_node, evict_res, evict_tg,
-             limit_p, sum_sw_p, ev_factor, rev_factor, forced_node) = xs
-            xs = (
-                padp(tg_idx, 0), padp(penalty_idx, -1),
-                padp(evict_node, -1), padp(evict_res, 0),
-                padp(evict_tg, -1), padp(limit_p, 0), padp(sum_sw_p, 0),
-                padp(ev_factor, 0), padp(rev_factor, 0),
-                padp(forced_node, -1),
-            )
-        static, carry, xs = scan_inputs_to_torch(enc.static, enc.carry, xs,
-                                                 self.device)
-        with _phases.track("device"):
-            out = to_numpy(kernels.forced_eval(static, carry, xs))
-        return tuple(a[:p] for a in out)
+        with self._thread_stream():
+            packed = kernels.pack_forced_inputs(enc, self.device)
+            with _phases.track("device"):
+                out, out_layout = kernels.forced_eval_packed(packed)
+                chosen, scores = from_device_packed(out, out_layout)
+        p = chosen.shape[0]
+        return (chosen, scores, np.zeros(p, np.int32), np.zeros(p, bool),
+                np.zeros((p, 0), np.int32))
 
     @staticmethod
     def _pipeline_remember(sched, enc: "EncodedEval") -> None:
@@ -2225,8 +2212,8 @@ def example_forced_variant(n_nodes: int = 64, n_placements: int = 64,
     affinities, penalties, evictions or candidates, limit 1, a pre-placed
     load that leaves some nodes without room and some task-group counts
     (anti-affinity), distinct_hosts off. ``device_dims`` adds capacity
-    dims past the four (device counts). The placement axis is NOT padded
-    (``run_forced`` pads it). numpy only; returns (n_pad, static, carry,
+    dims past the four (device counts). The placement axis is not padded
+    (``run_forced`` does not pad it either). numpy only; returns (n_pad, static, carry,
     xs), which the scan (K1/K2) also takes."""
     dtype = np.dtype(dtype)
     int_mode = dtype.kind == "i"

@@ -24,6 +24,15 @@ keyed by a hash of the source and every ``csrc/`` header it includes)
 and loaded with ``ctypes``; every pointer and the stream go across as
 ``c_void_p``.
 
+The server's paths launch through packed entries: the inputs lie in
+one buffer that came over in one copy (``pack_scan_inputs`` or the
+batcher's ``pack_batch`` for the scan, ``pack_forced_inputs`` for K4,
+``pack_chunk_inputs`` for K5), the kernel reads them through their
+offsets, and the outputs go into one buffer that goes back in one copy
+(``place_scan_batched_packed``, ``forced_eval_packed``,
+``chunk_scan_packed``). The tensor entries (``place_scan(_batched)``,
+``forced_eval``, ``chunk_scan``) launch the same kernels.
+
 The wrappers dispatch on the device of the tensors they are given: on
 the CPU they run the kernel's plain PyTorch version (``step.py``,
 ``forced.py``, ``chunk.py``), on CUDA they launch the kernel on the current stream or
@@ -199,6 +208,18 @@ REGIONS = PER_CTA + REPLICAS + STAGED
 
 def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
+
+
+def _out_layout(specs) -> Tuple[convert.Layout, int]:
+    """The byte layout of a packed launch's outputs, one per ``(dtype,
+    shape)`` of ``specs``, each at a 16-byte offset; and the end of the
+    last."""
+    layout, off = [], 0
+    for dt, shape in specs:
+        off = _align16(off)
+        layout.append((off, np.dtype(dt), shape))
+        off += int(np.prod(shape, dtype=np.int64)) * np.dtype(dt).itemsize
+    return layout, off
 
 
 @dataclass(frozen=True)
@@ -586,19 +607,20 @@ _MAX_SPREADS = 1024
 
 
 def _dtype(t) -> torch.dtype:
-    """A tensor's dtype, or the tensor dtype a numpy array becomes."""
-    return convert._TORCH_OF.get(t.dtype, t.dtype) if isinstance(t, np.ndarray) else t.dtype
+    """A tensor's dtype, or the tensor dtype a numpy array (or numpy
+    scalar) becomes."""
+    return t.dtype if isinstance(t, torch.Tensor) else convert._TORCH_OF.get(t.dtype, t.dtype)
 
 
 def _shape_check(name, t, dtype, shape, who: str = "place_scan") -> None:
-    """Check a tensor's dtype, shape and layout; a numpy array (which is
-    copied into a packed buffer, so need not be contiguous) by the
-    tensor dtype it becomes."""
+    """Check a tensor's dtype, shape and layout; a numpy array or scalar
+    (which is copied into a packed buffer, so need not be contiguous) by
+    the tensor dtype it becomes."""
     if _dtype(t) != dtype:
         raise TypeError(f"{who}: {name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not isinstance(t, np.ndarray) and not t.is_contiguous():
+    if isinstance(t, torch.Tensor) and not t.is_contiguous():
         raise ValueError(f"{who}: {name} is not contiguous")
 
 
@@ -613,11 +635,12 @@ def _scan_dims(static_b, carry_b, xs_b) -> Dict[str, int]:
 
 
 def _check_batched(static_b, carry_b, xs_b) -> Dict[str, int]:
-    """Validate every array of a batched scan against the shapes and
-    dtypes the kernel reads; return the sizes and specialization flags."""
+    """Validate every array of a batched scan (tensors on one device, or
+    numpy arrays) against the shapes and dtypes the kernel reads; return
+    the sizes and specialization flags."""
     if len(static_b) != 26 or len(carry_b) != 12 or len(xs_b) != 10:
         raise ValueError("place_scan: expected 26 static, 12 carry and 10 xs arrays")
-    T = static_b[0].dtype
+    T = _dtype(static_b[0])
     if T not in (I32, F32):
         raise NotImplementedError(
             f"place_scan: the kernel has an int32 and a float32 arm (totals dtype {T})")
@@ -675,9 +698,9 @@ def _check_batched(static_b, carry_b, xs_b) -> Dict[str, int]:
         ("pre_remaining", carry_b[10], I64, (B, RN, 3)),
         ("pre_counts", carry_b[11], I32, (B, GP)),
     ]
-    dev = static_b[0].device
+    dev = static_b[0].device if isinstance(static_b[0], torch.Tensor) else None
     for name, t, dtype, shape in specs:
-        if t.device != dev:
+        if dev is not None and t.device != dev:
             raise ValueError(f"place_scan: {name} is on {t.device}, totals on {dev}")
         _shape_check(name, t, dtype, shape)
     if V < 1 or (DP and V2 < 1):
@@ -690,47 +713,32 @@ def _check_batched(static_b, carry_b, xs_b) -> Dict[str, int]:
     return m
 
 
-def _launch_place_scan(static_b, carry_b, xs_b, cs: Optional[int] = None, sections=None):
-    m = _check_batched(static_b, carry_b, xs_b)
-    dev = static_b[0].device
-    B, P = m["B"], m["P"]
-    float_arm = static_b[0].dtype == F32
-    plan = _plan(m, not float_arm, cs, dev)
-    score_t = F32 if float_arm else I64
-    chosen = torch.empty((B, P), dtype=I32, device=dev)
-    scores = torch.empty((B, P), dtype=score_t, device=dev)
-    pulls = torch.empty((B, P), dtype=I32, device=dev)
-    skipped = torch.empty((B, P), dtype=BOOL, device=dev)
-    # the kernel writes the rank of each evicted slot and nothing else
-    evict = torch.full((B, P, m["C"]), -1, dtype=I32, device=dev)
-    arena = torch.empty(B * plan.cs * plan.arena_bytes, dtype=U8, device=dev)
-    pre_res = static_b[20]
-    if pre_res.data_ptr() % 16:
-        pre_res = pre_res.clone()  # the kernel loads a slot's four dims as one int4
-    tensors = {
-        "totals": static_b[0], "reserved": static_b[1], "asks": static_b[2],
-        "feat": static_b[3], "aff_score": static_b[4], "desired": static_b[5],
-        "dh_job": static_b[6], "dh_tg": static_b[7], "spread_vids": static_b[9],
-        "spread_desired": static_b[10], "spread_weights": static_b[11],
-        "spread_has_targets": static_b[12], "spread_active": static_b[13],
-        "n_real": static_b[15], "e_ask": static_b[16], "dp_vids": static_b[17],
-        "dp_limit": static_b[18], "dp_applies": static_b[19],
-        "used": carry_b[0], "tg_counts": carry_b[1], "job_counts": carry_b[2],
-        "spread_counts": carry_b[3], "spread_entry": carry_b[4], "offset": carry_b[5],
-        "failed": carry_b[6], "e_base": carry_b[7], "dp_counts": carry_b[8],
-        "tg_idx": xs_b[0], "penalty_idx": xs_b[1], "evict_node": xs_b[2],
-        "evict_res": xs_b[3], "evict_tg": xs_b[4], "limit_p": xs_b[5],
-        "sum_sw_p": xs_b[6], "ev_factor": xs_b[7], "rev_factor": xs_b[8],
-        "forced_node": xs_b[9],
-        "chosen": chosen, "scores": scores, "pulls": pulls, "skipped": skipped,
-        "pre_res": pre_res, "pre_prio": static_b[21], "pre_elig": static_b[22],
-        "pre_mp": static_b[23], "pre_gid": static_b[24], "pre_evf": static_b[25],
-        "pre_alive": carry_b[9], "pre_remaining": carry_b[10], "pre_counts": carry_b[11],
-        "evict_out": evict, "arena": arena,
-    }
-    ptrs = {k: tensors[k].data_ptr() for k in tensors}
-    ptrs["sections"] = 0 if sections is None else sections.data_ptr()
-    m.update(CS=plan.cs, per=plan.per, smem_bytes=plan.smem_bytes, arena_bytes=plan.arena_bytes)
+#: the scan's arrays by the kernel's argument name -> their index in
+#: ``(*static, *carry, *xs)`` (26 + 12 + 10; ``limits`` and
+#: ``sum_spread_weights`` are not read); a packed scan buffer holds the
+#: 48 in that order
+_SCAN_INPUTS = {
+    "totals": 0, "reserved": 1, "asks": 2, "feat": 3, "aff_score": 4, "desired": 5,
+    "dh_job": 6, "dh_tg": 7, "spread_vids": 9, "spread_desired": 10, "spread_weights": 11,
+    "spread_has_targets": 12, "spread_active": 13, "n_real": 15, "e_ask": 16, "dp_vids": 17,
+    "dp_limit": 18, "dp_applies": 19, "pre_res": 20, "pre_prio": 21, "pre_elig": 22,
+    "pre_mp": 23, "pre_gid": 24, "pre_evf": 25,
+    "used": 26, "tg_counts": 27, "job_counts": 28, "spread_counts": 29, "spread_entry": 30,
+    "offset": 31, "failed": 32, "e_base": 33, "dp_counts": 34, "pre_alive": 35,
+    "pre_remaining": 36, "pre_counts": 37,
+    "tg_idx": 38, "penalty_idx": 39, "evict_node": 40, "evict_res": 41, "evict_tg": 42,
+    "limit_p": 43, "sum_sw_p": 44, "ev_factor": 45, "rev_factor": 46, "forced_node": 47,
+}
+#: where a scan's arrays lie among the 48 of a packed buffer
+SCAN_STATIC, SCAN_CARRY, SCAN_XS = slice(0, 26), slice(26, 38), slice(38, 48)
+
+
+def _launch_scan(ptrs: Dict[str, int], m: Dict[str, int], plan: ScanPlan, float_arm: bool,
+                 dev: torch.device) -> None:
+    """Launch K1-K3 on the current stream with these pointers (``ptrs``
+    holds every field of ``_PTR_FIELDS``) at ``plan`` and count it."""
+    m = dict(m, CS=plan.cs, per=plan.per, smem_bytes=plan.smem_bytes,
+             arena_bytes=plan.arena_bytes)
     args = ScanArgs(**{k: m[k] for k in _INT_FIELDS},
                     soff=(ctypes.c_int * len(REGIONS))(*plan.soff()),
                     **{k: ptrs[k] for k in _PTR_FIELDS})
@@ -747,7 +755,111 @@ def _launch_place_scan(static_b, carry_b, xs_b, cs: Optional[int] = None, sectio
         LAUNCHES[name] += 1
         if m["C"]:
             LAUNCHES["place_scan_has_pre"] += 1
+
+
+def _launch_place_scan(static_b, carry_b, xs_b, cs: Optional[int] = None, sections=None):
+    m = _check_batched(static_b, carry_b, xs_b)
+    dev = static_b[0].device
+    B, P = m["B"], m["P"]
+    float_arm = static_b[0].dtype == F32
+    plan = _plan(m, not float_arm, cs, dev)
+    score_t = F32 if float_arm else I64
+    chosen = torch.empty((B, P), dtype=I32, device=dev)
+    scores = torch.empty((B, P), dtype=score_t, device=dev)
+    pulls = torch.empty((B, P), dtype=I32, device=dev)
+    skipped = torch.empty((B, P), dtype=BOOL, device=dev)
+    # the kernel writes the rank of each evicted slot and nothing else
+    evict = torch.full((B, P, m["C"]), -1, dtype=I32, device=dev)
+    arena = torch.empty(B * plan.cs * plan.arena_bytes, dtype=U8, device=dev)
+    arrays = (*static_b, *carry_b, *xs_b)
+    ptrs = {k: arrays[i].data_ptr() for k, i in _SCAN_INPUTS.items()}
+    if ptrs["pre_res"] % 16:
+        # the kernel loads a slot's four dims as one int4
+        pre_res = static_b[20].clone()
+        ptrs["pre_res"] = pre_res.data_ptr()
+    ptrs.update(chosen=chosen.data_ptr(), scores=scores.data_ptr(), pulls=pulls.data_ptr(),
+                skipped=skipped.data_ptr(), evict_out=evict.data_ptr(), arena=arena.data_ptr(),
+                sections=0 if sections is None else sections.data_ptr())
+    _launch_scan(ptrs, m, plan, float_arm, dev)
     return carry_b, (chosen, scores, pulls, skipped, evict)
+
+
+@dataclass(frozen=True)
+class PackedScan:
+    """A K3 launch's inputs in one buffer (``pack_scan_inputs``, or the
+    batcher's ``pack_batch``): ``buf`` (uint8, on the device), the
+    ``layout`` of its 48 arrays (``convert.Layout``, each with its
+    leading batch axis, in ``SCAN_*`` order, every offset 16-byte
+    aligned) and the sizes ``_check_batched`` found (``dims``)."""
+
+    buf: torch.Tensor
+    layout: convert.Layout
+    dims: Dict[str, int]
+
+    def parts(self):
+        """``(static_b, carry_b, xs_b)`` as tensor views into ``buf``: a
+        launch updates the carry in place."""
+        v = convert.unpack(self.buf, self.layout)
+        return v[SCAN_STATIC], v[SCAN_CARRY], v[SCAN_XS]
+
+
+def pack_scan_inputs(static, carry, xs, device: convert.DeviceLike = "cuda") -> PackedScan:
+    """One eval's numpy scan inputs as a batch of one, checked and moved
+    to ``device`` as one packed buffer (``convert.to_device_packed``: on
+    CUDA one copy from pinned host memory, on the current stream)."""
+    arrays = [np.asarray(a) for a in (*static, *carry, *xs)]
+    if len(arrays) != 48:
+        raise ValueError("place_scan: expected 26 static, 12 carry and 10 xs arrays")
+    one = [a[None] for a in arrays]
+    m = _check_batched(one[SCAN_STATIC], one[SCAN_CARRY], one[SCAN_XS])
+    buf, layout = convert.to_device_packed(arrays, device)
+    return PackedScan(buf, [(o, dt, (1, *shape)) for o, dt, shape in layout], m)
+
+
+def _scan_out_layout(B: int, P: int, C: int, float_arm: bool) -> Tuple[convert.Layout, int]:
+    """The byte layout of a packed K3 launch's outputs: chosen, scores,
+    pulls, skipped, evict; and their end, 16-byte aligned (the arena
+    follows)."""
+    layout, end = _out_layout(((np.int32, (B, P)), (np.float32 if float_arm else np.int64, (B, P)),
+                               (np.int32, (B, P)), (np.bool_, (B, P)), (np.int32, (B, P, C))))
+    return layout, _align16(end)
+
+
+def place_scan_batched_packed(packed: PackedScan, cs: Optional[int] = None):
+    """K3 on a packed buffer (``pack_scan_inputs``, ``batcher.pack_batch``).
+    The kernel reads the inputs and updates the carry in place through
+    their offsets, with no tensor made per array (each tensor operation
+    lets go of the GIL, which the server's threads contend for), and
+    writes every output into one buffer on the same device, which also
+    holds the launch's arena. Returns ``(out, out_layout)``:
+    ``convert.from_device_packed`` brings ``(chosen, scores, pulls,
+    skipped, evict)``, each ``[B, P, ...]``, back with one copy. The
+    launch plan is ``place_scan_batched``'s, and ``cs`` forces its
+    cluster size as there. On the CPU the plain version runs on views of
+    the buffer."""
+    dev, m = packed.buf.device, packed.dims
+    if dev.type == "cpu":
+        static_b, carry_b, xs_b = packed.parts()
+        if cs is None:
+            _, ys = place_scan_batched(static_b, carry_b, xs_b)
+        else:
+            _, ys = place_scan_batched(static_b, carry_b, xs_b, cs=cs)
+        return convert.pack([y.numpy() for y in ys])
+    if dev.type != "cuda":
+        raise ValueError(f"place_scan_batched_packed: unsupported device {dev}")
+    float_arm = packed.layout[0][1] == np.float32
+    plan = _plan(m, not float_arm, cs, dev)
+    out_layout, end = _scan_out_layout(m["B"], m["P"], m["C"], float_arm)
+    # every byte 0xFF: the evict column reads -1 where the kernel writes
+    # no rank (it writes every other output whole); the arena follows
+    out = torch.full((end + m["B"] * plan.cs * plan.arena_bytes,), 255, dtype=U8, device=dev)
+    base, obase = packed.buf.data_ptr(), out.data_ptr()
+    ptrs = {k: base + packed.layout[i][0] for k, i in _SCAN_INPUTS.items()}
+    ptrs.update({k: obase + o for k, (o, _dt, _s) in
+                 zip(("chosen", "scores", "pulls", "skipped", "evict_out"), out_layout)},
+                arena=obase + end, sections=0)
+    _launch_scan(ptrs, m, plan, float_arm, dev)
+    return out, out_layout
 
 
 def _device_of(arrays) -> torch.device:
@@ -928,10 +1040,29 @@ def k8_sweep(n: torch.Tensor, needed: torch.Tensor, res: torch.Tensor, num: torc
 
 # -- forced_eval (K4) ---------------------------------------------------------
 
+#: the 16 arrays K4 reads, by its argument name -> (part, index) of
+#: (static, carry, xs); a packed buffer (``pack_forced_inputs``) holds
+#: them in this order
+_FORCED_INPUTS = {
+    "totals": (0, 0), "reserved": (0, 1), "asks": (0, 2), "feat": (0, 3),
+    "desired": (0, 5), "dh_job": (0, 6), "dh_tg": (0, 7), "n_real": (0, 15),
+    "e_ask": (0, 16), "used": (1, 0), "tg_counts": (1, 1), "job_counts": (1, 2),
+    "failed": (1, 6), "e_base": (1, 7), "tg_idx": (2, 0), "forced_node": (2, 9),
+}
 
-def _launch_forced_eval(static, carry, xs):
+
+def _check_forced(static, carry, xs) -> Dict[str, int]:
+    """Validate what K4 reads (tensors or numpy arrays): the system
+    encoder's shape, one forced node per placement and no candidate
+    axis; return the kernel's sizes."""
     totals, reserved, asks = static[0], static[1], static[2]
-    T = totals.dtype
+    T = _dtype(totals)
+    if T not in (I32, F32):
+        raise NotImplementedError(
+            f"forced_eval: the kernel has an int32 and a float32 arm (totals dtype {T})")
+    if static[20].shape[1] or len(xs[9].shape) != 2 or xs[9].shape[1] != 1:
+        raise ValueError("forced_eval: takes one forced node per placement and no "
+                         "candidate axis")
     n, d = totals.shape
     g = asks.shape[0]
     p = xs[0].shape[0]
@@ -952,21 +1083,15 @@ def _launch_forced_eval(static, carry, xs):
     ]
     for name, t, dtype, shape in specs:
         _shape_check(name, t, dtype, shape, "forced_eval")
-    dev = totals.device
-    float_arm = T == F32
-    chosen = torch.empty(p, dtype=I32, device=dev)
-    scores = torch.empty(p, dtype=F32 if float_arm else I64, device=dev)
-    tensors = {
-        "totals": totals, "reserved": reserved, "asks": asks, "feat": static[3],
-        "desired": static[5], "dh_job": static[6], "dh_tg": static[7],
-        "n_real": static[15], "e_ask": static[16], "used": carry[0],
-        "tg_counts": carry[1], "job_counts": carry[2], "failed": carry[6],
-        "e_base": carry[7], "tg_idx": xs[0], "forced_node": xs[9],
-        "chosen": chosen, "scores": scores,
-    }
-    args = ForcedArgs(P=p, N=n, D=d, G=g, has_reserved=int(R > 0),
-                      **{k: tensors[k].data_ptr() for k in _FORCED_PTR_FIELDS})
-    name = "forced_eval_f32" if float_arm else "forced_eval"
+    return {"P": p, "N": n, "D": d, "G": g, "has_reserved": int(R > 0), "float_arm": int(T == F32)}
+
+
+def _launch_forced(ptrs: Dict[str, int], m: Dict[str, int], dev: torch.device) -> None:
+    """Launch K4 on the current stream with these pointers (``ptrs``
+    holds every field of ``_FORCED_PTR_FIELDS``) and count it."""
+    args = ForcedArgs(**{k: m[k] for k in _FORCED_INT_FIELDS},
+                      **{k: ptrs[k] for k in _FORCED_PTR_FIELDS})
+    name = "forced_eval_f32" if m["float_arm"] else "forced_eval"
     source, entry = KERNELS[name]
     lib = _lib(source)
     with torch.cuda.device(dev):
@@ -977,6 +1102,17 @@ def _launch_forced_eval(static, carry, xs):
             f"{name} launch failed: {lib.forced_eval_error_string(err).decode()}")
     with _count_lock:
         LAUNCHES[name] += 1
+
+
+def _launch_forced_eval(static, carry, xs):
+    m = _check_forced(static, carry, xs)
+    dev, p = static[0].device, m["P"]
+    chosen = torch.empty(p, dtype=I32, device=dev)
+    scores = torch.empty(p, dtype=F32 if m["float_arm"] else I64, device=dev)
+    parts = (static, carry, xs)
+    ptrs = {k: parts[a][i].data_ptr() for k, (a, i) in _FORCED_INPUTS.items()}
+    ptrs.update(chosen=chosen.data_ptr(), scores=scores.data_ptr())
+    _launch_forced(ptrs, m, dev)
     return (chosen, scores, torch.zeros(p, dtype=I32, device=dev),
             torch.zeros(p, dtype=BOOL, device=dev),
             torch.zeros((p, 0), dtype=I32, device=dev))
@@ -988,20 +1124,83 @@ def forced_eval(static, carry, xs):
     xs) -> (chosen, scores, pulls, skipped, evict)``. The inputs are not
     modified. On the CPU the plain version (``forced.py``) runs. The
     kernel takes no candidate axis and exactly one forced node per
-    placement; anything else raises."""
+    placement; anything else raises. The server's path takes the packed
+    entry (``pack_forced_inputs`` / ``forced_eval_packed``), which
+    launches the same kernel."""
     dev = _device_of((*static, *carry, *xs))
-    if static[0].dtype not in (I32, F32):
-        raise NotImplementedError(
-            f"forced_eval: the kernel has an int32 and a float32 arm (totals dtype "
-            f"{static[0].dtype})")
-    if static[20].shape[1] or xs[9].ndim != 2 or xs[9].shape[1] != 1:
-        raise ValueError("forced_eval: takes one forced node per placement and no "
-                         "candidate axis")
     if dev.type == "cuda":
         return _launch_forced_eval(static, carry, xs)
     if dev.type != "cpu":
         raise ValueError(f"forced_eval: unsupported device {dev}")
+    _check_forced(static, carry, xs)
     return _forced.forced_eval(static, carry, xs)
+
+
+@dataclass(frozen=True)
+class PackedForced:
+    """One system eval's K4 inputs in one buffer (``pack_forced_inputs``):
+    ``buf`` (uint8, on the device), the ``layout`` of its 16 arrays
+    (``convert.Layout``, in ``_FORCED_INPUTS`` order) and the sizes
+    ``_check_forced`` found (``dims``)."""
+
+    buf: torch.Tensor
+    layout: convert.Layout
+    dims: Dict[str, int]
+
+    def parts(self):
+        """``(static, carry, xs)`` with the 16 arrays as tensor views into
+        ``buf`` in their places and None in every other."""
+        parts = ([None] * 26, [None] * 12, [None] * 10)
+        for (a, i), view in zip(_FORCED_INPUTS.values(), convert.unpack(self.buf, self.layout)):
+            parts[a][i] = view
+        return tuple(tuple(p) for p in parts)
+
+
+def pack_forced_inputs(enc_or_arrays, device: convert.DeviceLike = "cuda") -> PackedForced:
+    """Check one system eval's numpy inputs (an ``EncodedEval`` or its
+    ``(static, carry, xs)``) and move exactly the 16 arrays K4 reads to
+    ``device`` as one packed buffer (``convert.to_device_packed``: on
+    CUDA one copy from pinned host memory, on the current stream)."""
+    if hasattr(enc_or_arrays, "static"):
+        parts = (enc_or_arrays.static, enc_or_arrays.carry, enc_or_arrays.xs)
+    else:
+        parts = tuple(enc_or_arrays)
+    m = _check_forced(*parts)
+    arrays = [parts[a][i] for a, i in _FORCED_INPUTS.values()]
+    buf, layout = convert.to_device_packed(arrays, device)
+    return PackedForced(buf, layout, m)
+
+
+def _forced_out_layout(p: int, float_arm: bool) -> Tuple[convert.Layout, int]:
+    """The byte layout of a packed K4 launch's output buffer: chosen,
+    then the scores; and its size."""
+    return _out_layout(((np.int32, (p,)), (np.float32 if float_arm else np.int64, (p,))))
+
+
+def forced_eval_packed(packed: PackedForced):
+    """K4 on a packed buffer (``pack_forced_inputs``): the kernel reads
+    its inputs through their offsets, with no tensor made per array, and
+    writes ``chosen`` and ``scores`` into one output buffer on the same
+    device. Returns ``(out, out_layout)`` (``convert.from_device_packed``
+    brings both back with one copy); the scan's other outputs are
+    constant for this shape (pulls 0, nothing skipped, an empty evict
+    column), so the caller makes them on the host. On the CPU the plain
+    version runs on views of the buffer. With P = 0 nothing launches."""
+    dev, m = packed.buf.device, packed.dims
+    if dev.type == "cpu":
+        chosen, scores, *_ = _forced.forced_eval(*packed.parts())
+        return convert.pack([chosen.numpy(), scores.numpy()])
+    if dev.type != "cuda":
+        raise ValueError(f"forced_eval_packed: unsupported device {dev}")
+    out_layout, nbytes = _forced_out_layout(m["P"], bool(m["float_arm"]))
+    out = torch.empty(max(nbytes, 1), dtype=U8, device=dev)
+    if m["P"] == 0:
+        return out, out_layout
+    base, obase = packed.buf.data_ptr(), out.data_ptr()
+    ptrs = {k: base + o for k, (o, _dt, _s) in zip(_FORCED_INPUTS, packed.layout)}
+    ptrs.update(chosen=obase + out_layout[0][0], scores=obase + out_layout[1][0])
+    _launch_forced(ptrs, m, dev)
+    return out, out_layout
 
 
 def forced_eval_work(static, carry, xs) -> Tuple[int, int]:
@@ -1182,15 +1381,11 @@ def _chunk_out_layout(T: int, K: int, plan: ChunkPlan):
     list out of shared memory) the list's scratch row. Returns the
     outputs' layout (``convert.Layout``), the scratch offset (or None)
     and the buffer's size."""
-    layout, off = [], 0
-    for dt, shape in ((np.int32, (T, K)), (np.float32, (T, K)), (np.bool_, (T, K)),
-                      (np.int32, (T,))):
-        off = -(-off // 16) * 16
-        layout.append((off, np.dtype(dt), shape))
-        off += T * (K if len(shape) == 2 else 1) * np.dtype(dt).itemsize
+    layout, off = _out_layout(((np.int32, (T, K)), (np.float32, (T, K)), (np.bool_, (T, K)),
+                               (np.int32, (T,))))
     pairs = None
     if not plan.list_in_smem:
-        pairs = -(-off // 16) * 16
+        pairs = _align16(off)
         off = pairs + chunk_list_cap(K) * 8
     return layout, pairs, off
 

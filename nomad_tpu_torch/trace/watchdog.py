@@ -44,7 +44,7 @@ class LivenessWatchdog:
                  logger: Optional[logging.Logger] = None) -> None:
         self.server = server
         self.stall_after = float(stall_after)
-        self.logger = logger or logging.getLogger("nomad_tpu.trace.watchdog")
+        self.logger = logger or logging.getLogger("nomad_tpu_torch.trace.watchdog")
         self.fired = 0
         self._last_placed: Optional[int] = None
         self._last_progress_t: Optional[float] = None

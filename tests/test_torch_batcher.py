@@ -417,3 +417,181 @@ def test_concurrent_evals_share_device_dispatch(deterministic):
         assert stats["dispatches"] < stats["evals"], stats
     finally:
         server.stop()
+
+
+# -- the packed batch (pack_batch, place_scan_batched_packed) ---------------------
+
+
+def variant_enc(variant, n_nodes, n_tgs, n_placements, seed, dtype=np.int32, c=None):
+    """An EncodedEval of ``example_scan_variant``'s ``variant`` (the
+    preemption variants cut to ``c`` candidate slots)."""
+    from nomad_tpu_torch.tpu.engine import PREEMPT_VARIANTS, example_scan_variant
+
+    if variant in PREEMPT_VARIANTS:
+        return preempt_enc(n_nodes, n_placements, seed, c=c, variant=variant)
+    n_pad, static, carry, xs = example_scan_variant(
+        variant, n_nodes=n_nodes, n_tgs=n_tgs, n_placements=n_placements, seed=seed,
+        dtype=dtype)
+    return EncodedEval(
+        n_real=n_nodes, n_pad=n_pad, g=n_tgs, s=static[9].shape[1],
+        v=static[10].shape[2], p=n_placements, dtype=dtype,
+        static=static, carry=carry, xs=xs,
+        missing_list=[], nodes=[], table=None, start_ns=0)
+
+
+def _mix(name, dtype):
+    """The mixed batches the slab must pad as ``pad_encoded`` does."""
+    if name == "spreads":
+        return [synthetic_enc(17, 1, 3, n_spreads=0, seed=1, dtype=dtype),
+                synthetic_enc(64, 3, 16, n_spreads=1, seed=2, dtype=dtype),
+                variant_enc("even", 33, 2, 7, seed=3, dtype=dtype),
+                synthetic_enc(50, 4, 11, n_spreads=2, seed=5, dtype=dtype)]
+    if name == "affinity":
+        return [variant_enc("affinity", 40, 2, 9, seed=6, dtype=dtype),
+                variant_enc("s0", 30, 3, 5, seed=7, dtype=dtype)]
+    if name == "evictions":
+        return [variant_enc("evict", 40, 2, 12, seed=8, dtype=dtype),
+                variant_enc("s1", 20, 1, 4, seed=9, dtype=dtype),
+                variant_enc("overcommit", 36, 2, 10, seed=10, dtype=dtype)]
+    if name == "device_dims":
+        wide = synthetic_enc(24, 2, 5, seed=32, dtype=dtype, num_dims=6)
+        wide.static[0][:, 4] = 2
+        wide.static[2][:, 4] = 1
+        return [synthetic_enc(24, 2, 5, seed=31, dtype=dtype), wide]
+    if name == "preemption":
+        return [synthetic_enc(40, 2, 9, seed=11, dtype=np.int32),
+                preempt_enc(48, 12, seed=12, c=5), preempt_enc(30, 7, seed=13),
+                preempt_enc(36, 10, seed=15, variant="preempt_forced")]
+    if name == "distinct_property":
+        return [variant_enc("distinct_property", 44, 2, 10, seed=16, dtype=dtype),
+                variant_enc("s1", 28, 2, 6, seed=17, dtype=dtype),
+                variant_enc("penalty", 30, 2, 6, seed=18, dtype=dtype)]
+    if name == "fillers":  # 3 evals in a bucket of 8: five filler evals
+        return [variant_enc("all", 24, 2, 5, seed=s, dtype=dtype) for s in (19, 20, 21)]
+    raise ValueError(name)
+
+
+PACK_CASES = [(name, dt) for name in ("spreads", "affinity", "evictions", "device_dims",
+                                      "distinct_property", "fillers") for dt in ARMS]
+PACK_CASES.append(("preemption", np.int32))
+
+
+@pytest.mark.parametrize("name,dtype", PACK_CASES,
+                         ids=[f"{n}-{np.dtype(d).name}" for n, d in PACK_CASES])
+def test_pack_batch_equals_pad_and_stack(name, dtype):
+    """The slab ``pack_batch`` writes unpacks to exactly the arrays
+    ``_pad_and_stack`` makes (value and dtype), fillers included, each at
+    a 16-byte offset, and ``place_scan_batched_packed`` on it gives the
+    tensor entry's outputs on those arrays."""
+    from nomad_tpu_torch.tpu import convert
+    from nomad_tpu_torch.tpu.batcher import batch_dims, pack_batch
+
+    encs = _mix(name, dtype)
+    batcher = DeviceBatcher(max_batch=8, device="cpu")
+    dims = batch_dims(encs)
+    static_b, carry_b, xs_b, b, b_pad = batcher._pad_and_stack(encs, **dims)
+    assert b == len(encs)
+    packed = pack_batch(encs, dims, b_pad, "cpu")
+    assert all(o % 16 == 0 for o, _dt, _s in packed.layout)
+    views = [v.numpy() for part in packed.parts() for v in part]
+    refs = [*static_b, *carry_b, *xs_b]
+    assert len(views) == len(refs) == 48
+    for k, (got, ref) in enumerate(zip(views, refs)):
+        assert got.dtype == ref.dtype and got.shape == ref.shape, k
+        assert np.array_equal(got, ref), k
+    out, layout = kernels.place_scan_batched_packed(packed)
+    ys = convert.from_device_packed(out, layout)
+    _c, ref_ys = kernels.place_scan_batched(*convert.scan_inputs_to_torch(
+        static_b, carry_b, xs_b, "cpu"))
+    for a, r in zip(ys, ref_ys):
+        assert a.dtype == r.numpy().dtype and np.array_equal(a, r.numpy())
+
+
+def test_slab_reuse_gives_each_batch_its_own_results():
+    """Two batches of different contents back to back through one
+    batcher (one slab): each eval gets its own single-run results."""
+    first = [synthetic_enc(30, 2, 6, seed=s, dtype=np.int32) for s in (40, 41)]
+    second = [variant_enc("all", 50, 3, 9, seed=s) for s in (42, 43, 44)]
+    singles = [engine().run_scan_single(e) for e in first + second]
+    batcher = DeviceBatcher(max_batch=4, window_ms=2000.0, device="cpu")
+    try:
+        got1, err1 = run_concurrent(batcher, first)
+        got2, err2 = run_concurrent(batcher, second)
+    finally:
+        batcher.stop()
+    assert err1 + err2 == [None] * 5 and batcher.stats["dispatches"] == 2
+    for i, (single, got) in enumerate(zip(singles, got1 + got2)):
+        assert_same(single, got, f"eval {i}")
+
+
+def test_run_batch_packs_once_and_makes_no_tensor_per_array(monkeypatch):
+    """A batch is one slab write, one host-to-device copy, one packed
+    launch and one copy back, with no ``scan_inputs_to_torch``; the
+    batcher records its host sections."""
+    from nomad_tpu_torch.tpu import batcher as tbatcher
+    from nomad_tpu_torch.tpu import convert
+
+    calls = {"pack": 0, "h2d": 0, "launch": 0, "d2h": 0, "loose": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(tbatcher, "pack_batch", spy("pack", tbatcher.pack_batch))
+    monkeypatch.setattr(convert.HostSlab, "to_device", spy("h2d", convert.HostSlab.to_device))
+    monkeypatch.setattr(kernels, "place_scan_batched_packed",
+                        spy("launch", kernels.place_scan_batched_packed))
+    monkeypatch.setattr(tbatcher, "from_device_packed", spy("d2h", tbatcher.from_device_packed))
+    monkeypatch.setattr(convert, "scan_inputs_to_torch",
+                        spy("loose", convert.scan_inputs_to_torch))
+    encs = _mix("evictions", np.float32)
+    batcher = DeviceBatcher(max_batch=len(encs), window_ms=2000.0, device="cpu")
+    try:
+        _, errors = run_concurrent(batcher, encs)
+    finally:
+        batcher.stop()
+    assert errors == [None] * len(encs) and batcher.stats["dispatches"] == 1
+    assert calls == {"pack": 1, "h2d": 1, "launch": 1, "d2h": 1, "loose": 0}
+    prof = batcher.section_profile()
+    assert prof["batches"] == 1
+    assert set(prof) == {"batches", "slab", "h2d", "launch", "d2h"}
+    assert all(prof[k]["sum_ms"] >= 0.0 for k in ("slab", "h2d", "launch", "d2h"))
+
+
+@pytest.mark.parametrize("dtype", ARMS)
+def test_packed_batcher_equals_jax_batcher(dtype):
+    """The same mixed encodes (evictions, affinities, distinct_property,
+    spreads and none, three evals in a bucket of eight) through the
+    port's batcher and the JAX package's: the int arm bit for bit, the
+    float arm with no placement diverged and scores within the parity
+    bound."""
+    import nomad_tpu.tpu.batcher as jbatcher
+    import nomad_tpu.tpu.engine as jengine
+
+    from nomad_tpu_torch.tpu import parity
+
+    encs = [variant_enc("evict", 40, 2, 9, seed=50, dtype=dtype),
+            variant_enc("distinct_property", 30, 3, 7, seed=51, dtype=dtype),
+            variant_enc("affinity", 24, 1, 5, seed=52, dtype=dtype)]
+    jencs = [jengine.EncodedEval(
+        n_real=e.n_real, n_pad=e.n_pad, g=e.g, s=e.s, v=e.v, p=e.p, dtype=e.dtype,
+        static=e.static, carry=e.carry, xs=e.xs, missing_list=[], nodes=[], table=None,
+        start_ns=0) for e in encs]
+    ours = DeviceBatcher(max_batch=8, window_ms=2000.0, device="cpu")
+    theirs = jbatcher.DeviceBatcher(max_batch=8, window_ms=2000.0)
+    try:
+        got, errors = run_concurrent(ours, encs)
+        ref, jerrors = run_concurrent(theirs, jencs, timeout=300.0)
+    finally:
+        ours.stop()
+        theirs.stop()
+    assert errors == [None] * 3 and jerrors == [None] * 3
+    assert ours.stats["dispatches"] == 1 and ours.stats["padded_evals"] == 5
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if dtype == np.int32:
+            assert_same(r, g, f"eval {i} against the JAX batcher")
+        else:
+            parity.check_float_scan(((), tuple(r[:4])), ((), tuple(g[:4])),
+                                    encs[i].xs[0][: encs[i].p], f"eval {i}")

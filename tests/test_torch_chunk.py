@@ -418,7 +418,7 @@ def test_packed_copy_round_trips_every_array_of_an_encode():
         assert np.array_equal(b, t.numpy())
 
     calls = {"packed": 0, "loose": 0}
-    orig_packed, orig_loose = convert.to_device_packed, tengine.scan_inputs_to_torch
+    orig_packed, orig_loose = convert.to_device_packed, convert.scan_inputs_to_torch
 
     def packed_copy(*args, **kwargs):
         calls["packed"] += 1
@@ -428,11 +428,11 @@ def test_packed_copy_round_trips_every_array_of_an_encode():
         calls["loose"] += 1
         return orig_loose(*args, **kwargs)
 
-    convert.to_device_packed, tengine.scan_inputs_to_torch = packed_copy, loose
+    convert.to_device_packed, convert.scan_inputs_to_torch = packed_copy, loose
     try:
         TorchPlacementEngine("cpu").run_chunked(enc, chunk_k=16)
     finally:
-        convert.to_device_packed, tengine.scan_inputs_to_torch = orig_packed, orig_loose
+        convert.to_device_packed, convert.scan_inputs_to_torch = orig_packed, orig_loose
     assert calls == {"packed": 1, "loose": 0}
 
 

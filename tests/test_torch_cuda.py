@@ -479,3 +479,104 @@ def test_chunk_packed_entry_equals_tensor_entry(cuda, variant, k):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(p_carry, ref[0]))
     assert torch.equal(p_deficit, ref[1])
+
+
+# -- the packed entries: K4 and K3 read one buffer through offsets -------------
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32], ids=["int", "float"])
+@pytest.mark.parametrize("device_dims,p", [(0, 500), (2, 333), (0, 1)])
+def test_packed_forced_equals_plain_and_tensor_entry(cuda, dtype, device_dims, p):
+    """``forced_eval_packed`` on one pinned-and-copied buffer, on a stream
+    of its own, against the plain version and the tensor entry on the
+    same inputs, bit for bit in both arms, with P as it comes."""
+    from nomad_tpu_torch.tpu.engine import example_forced_variant
+
+    n_pad, st, ca, xs = example_forced_variant(n_nodes=600, n_placements=p, seed=3,
+                                               dtype=dtype, device_dims=device_dims)
+    s, c, x = convert.scan_inputs_to_torch(st, ca, xs, cuda)
+    tensor = convert.to_numpy(kernels.forced_eval(s, c, x)[:2])
+    plain = convert.to_numpy(kernels._forced.forced_eval(s, c, x)[:2])
+    name = "forced_eval" if dtype == np.int32 else "forced_eval_f32"
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        before = kernels.LAUNCHES[name]
+        packed = kernels.pack_forced_inputs((st, ca, xs), cuda)
+        got = convert.from_device_packed(*kernels.forced_eval_packed(packed))
+        assert kernels.LAUNCHES[name] == before + 1
+    for g, t, q in zip(got, tensor, plain):
+        assert g.dtype == t.dtype == q.dtype and np.array_equal(g, t) and np.array_equal(g, q)
+
+
+def _pack_stacked(stacked, cuda):
+    """Stacked numpy (static_b, carry_b, xs_b) as one packed K3 buffer."""
+    buf, layout = convert.to_device_packed([a for part in stacked for a in part], cuda)
+    return kernels.PackedScan(buf, layout, kernels._check_batched(*stacked))
+
+
+@pytest.mark.parametrize("arm", ["int", "float", "has_pre"])
+def test_packed_batched_equals_tensor_entry(cuda, arm):
+    """``place_scan_batched_packed`` on a packed buffer of B = 3 evals,
+    at the plan's CS and at CS = 1, against the tensor entry on the same
+    stacked arrays: every output and the final carry bit for bit."""
+    dtype = np.float32 if arm == "float" else np.int32
+    variant = "preempt" if arm == "has_pre" else "all"
+    evals = [example_scan_variant(variant, n_nodes=700, n_tgs=3, n_placements=48, seed=70 + i,
+                                  dtype=dtype) for i in range(3)]
+    stacked = [tuple(np.stack(col) for col in zip(*(e[k] for e in evals))) for k in (1, 2, 3)]
+    sb, cb, xb = convert.scan_inputs_to_torch(*stacked, cuda)
+    ref_carry, ref_ys = kernels.place_scan_batched(sb, cb, xb)
+    for cs in (None, 1):
+        packed = _pack_stacked(stacked, cuda)
+        out, out_layout = kernels.place_scan_batched_packed(packed, cs)
+        got = convert.from_device_packed(out, out_layout)
+        for g, r in zip(got, convert.to_numpy(ref_ys)):
+            assert g.dtype == r.dtype and np.array_equal(g, r), f"cs={cs}"
+        _s, carry, _x = packed.parts()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(carry, ref_carry)), f"cs={cs}"
+
+
+def test_packed_batched_in_waves(cuda):
+    """The packed entry at n_pad 33,024 with B = 80 (clusters in waves)
+    against the tensor entry, bit for bit."""
+    base = [example_scan_variant("all", n_nodes=33000, n_tgs=2, n_placements=4, seed=60 + i)
+            for i in range(4)]
+    evals = [base[b % 4] for b in range(80)]
+    stacked = [tuple(np.stack(col) for col in zip(*(e[k] for e in evals))) for k in (1, 2, 3)]
+    sb, cb, xb = convert.scan_inputs_to_torch(*stacked, cuda)
+    assert kernels.scan_waves(kernels.scan_plan(sb, cb, xb), 80, True) > 1
+    ref_carry, ref_ys = kernels.place_scan_batched(sb, cb, xb)
+    packed = _pack_stacked(stacked, cuda)
+    got = convert.from_device_packed(*kernels.place_scan_batched_packed(packed))
+    for g, r in zip(got, convert.to_numpy(ref_ys)):
+        assert g.dtype == r.dtype and np.array_equal(g, r)
+    _s, carry, _x = packed.parts()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(carry, ref_carry))
+
+
+def test_batcher_slab_reuse_on_the_card(cuda):
+    """Two batches of different contents back to back through one
+    batcher (one pinned slab, the dispatcher's own stream), then the
+    first again: each eval gets its single-run results, bit for bit."""
+    from nomad_tpu_torch.tpu.batcher import DeviceBatcher
+    from nomad_tpu_torch.tpu.engine import TorchPlacementEngine
+
+    from test_torch_batcher import run_concurrent, synthetic_enc, variant_enc
+
+    first = [synthetic_enc(300, 2, 20, seed=s, dtype=np.int32) for s in (40, 41)]
+    second = [variant_enc("all", 500, 3, 40, seed=s) for s in (42, 43, 44)]
+    engine = TorchPlacementEngine.shared(cuda)
+    singles = [engine.run_scan_single(e) for e in first + second]
+    batcher = DeviceBatcher(max_batch=4, window_ms=2000.0, device=cuda)
+    try:
+        got1, err1 = run_concurrent(batcher, first)
+        got2, err2 = run_concurrent(batcher, second)
+        got3, err3 = run_concurrent(batcher, first)
+    finally:
+        batcher.stop()
+    assert err1 + err2 + err3 == [None] * 7 and batcher.stats["dispatches"] == 3
+    for i, (single, got) in enumerate(zip(singles + singles[:2], got1 + got2 + got3)):
+        for a, b in zip(single, got):
+            assert a.dtype == b.dtype and np.array_equal(a, b), f"eval {i}"

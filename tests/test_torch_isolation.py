@@ -35,6 +35,35 @@ def test_static_imports(path):
     assert not bad, f"{path}: {bad}"
 
 
+def _logger_name_prefix(call: ast.Call):
+    """The literal start of a ``getLogger`` call's name: the string, or
+    the leading text of an f-string; None when the name is not literal."""
+    if not call.args:
+        return None
+    arg = call.args[0]
+    if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+        return arg.value
+    if (isinstance(arg, ast.JoinedStr) and arg.values and isinstance(arg.values[0], ast.Constant)):
+        return arg.values[0].value
+    return None
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_loggers_in_the_port_namespace(path):
+    """Every ``logging.getLogger`` of the port (and chip_smoke.py) names a
+    logger under ``nomad_tpu_torch``, so that in a process that holds both
+    packages the port's records never land in the reference's loggers."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and node.func.attr == "getLogger"):
+            name = _logger_name_prefix(node)
+            if name is None or not (name == "nomad_tpu_torch"
+                                    or name.startswith("nomad_tpu_torch.")):
+                bad.append((node.lineno, name))
+    assert not bad, f"{path}: loggers outside nomad_tpu_torch at (line, name) {bad}"
+
+
 _BLOCKED_RUN = textwrap.dedent("""
     import importlib.abc, sys
     sys.modules["jax"] = None
@@ -93,17 +122,17 @@ _BLOCKED_SYSTEM_RUN = _BLOCKED_RUN.split("h = Harness(device=\"cpu\")")[0] + tex
     from nomad_tpu_torch.tpu import kernels
 
     seen = []
-    orig_scan, orig_forced = kernels.place_scan, kernels.forced_eval
+    orig_scan, orig_forced = kernels.place_scan_batched_packed, kernels.forced_eval_packed
 
-    def scan(n_pad, static, carry, xs):
-        seen.append(("place_scan", static[20].shape[1]))
-        return orig_scan(n_pad, static, carry, xs)
+    def scan(packed, cs=None):
+        seen.append(("place_scan", packed.dims["C"]))
+        return orig_scan(packed, cs)
 
-    def forced(static, carry, xs):
+    def forced(packed):
         seen.append(("forced_eval", 0))
-        return orig_forced(static, carry, xs)
+        return orig_forced(packed)
 
-    kernels.place_scan, kernels.forced_eval = scan, forced
+    kernels.place_scan_batched_packed, kernels.forced_eval_packed = scan, forced
     h = Harness(device="cpu")
     h.state.scheduler_set_config(h.next_index(), SchedulerConfiguration(
         preemption_config=PreemptionConfig(system_scheduler_enabled=True,

@@ -366,6 +366,106 @@ def test_cpu_forced_eval_launches_no_kernel():
     assert kernels.LAUNCHES["forced_eval"] == 0 and kernels.LAUNCHES["forced_eval_f32"] == 0
 
 
+# -- the packed K4 entry (kernels.pack_forced_inputs / forced_eval_packed) ---------
+
+
+def _packed_k4(st, ca, xs):
+    out, layout = kernels.forced_eval_packed(kernels.pack_forced_inputs((st, ca, xs), "cpu"))
+    return convert.from_device_packed(out, layout)
+
+
+@pytest.mark.parametrize("p", [100, 1, 0])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32], ids=["int", "float"])
+def test_packed_forced_eval_against_jax(jax_forced, dtype, p):
+    """The packed entry on P placements as they come (not a power of
+    two, one, none) against the JAX ``_build_forced_kernel`` on the same
+    unpadded inputs: the int arm bit for bit, the float arm the same
+    picks and scores within the parity bound."""
+    n_pad, st, ca, xs = example_forced_variant(n_nodes=150, n_placements=max(p, 1), seed=2,
+                                               dtype=dtype, device_dims=2)
+    xs = tuple(a[:p] for a in xs)
+    jy, _ = _run_k4_both(jax_forced, st, ca, xs)
+    chosen, scores = _packed_k4(st, ca, xs)
+    assert chosen.shape == scores.shape == (p,)
+    assert chosen.dtype == jy[0].dtype and scores.dtype == jy[1].dtype
+    assert np.array_equal(chosen, jy[0])
+    if dtype == np.int32:
+        assert np.array_equal(scores, jy[1])
+    elif p:
+        both = chosen >= 0
+        assert np.abs(jy[1][both].astype(np.float64) - scores[both]).max() <= parity.FLOAT_SCORE_TOL
+    if p > 1:
+        assert 0 < (chosen >= 0).sum() < p
+
+
+def test_packed_forced_buffer_holds_the_sixteen_inputs():
+    """pack_forced_inputs keeps exactly the arrays K4 reads, each at a
+    16-byte offset, and ``parts`` puts their views where the plain
+    version reads them."""
+    n_pad, st, ca, xs = example_forced_variant(n_nodes=40, n_placements=30, seed=3)
+    packed = kernels.pack_forced_inputs((st, ca, xs), "cpu")
+    assert len(packed.layout) == 16 and all(o % 16 == 0 for o, _dt, _s in packed.layout)
+    assert packed.dims == {"P": 30, "N": n_pad, "D": 4, "G": 1, "has_reserved": 0,
+                           "float_arm": 0}
+    static, carry, xs_v = packed.parts()
+    for (part, arrays) in ((static, st), (carry, ca), (xs_v, xs)):
+        for view, ref in zip(part, arrays):
+            if view is not None:
+                assert view.numpy().dtype == np.asarray(ref).dtype
+                assert np.array_equal(view.numpy(), np.asarray(ref))
+    assert sum(v is not None for part in (static, carry, xs_v) for v in part) == 16
+
+
+def test_packed_forced_eval_rejects_a_candidate_axis():
+    n_pad, st, ca, xs = example_forced_variant(n_nodes=40, n_placements=20, seed=1)
+    st = list(st)
+    st[20] = np.zeros((n_pad, 1, 4), np.int32)
+    with pytest.raises(ValueError, match="candidate axis"):
+        kernels.pack_forced_inputs((st, ca, xs), "cpu")
+
+
+@pytest.mark.parametrize("deterministic", [True, False], ids=["int", "float"])
+def test_run_forced_packs_once_and_makes_no_tensor_per_array(deterministic, monkeypatch):
+    """Every system eval of the forced-kernel scenario through
+    ``run_forced``: one packed buffer (one host-to-device copy), one
+    packed launch, one copy back, and no ``scan_inputs_to_torch``; its
+    results equal the tensor entry's on the same encode."""
+    from nomad_tpu_torch.tpu import engine as tengine
+
+    calls = {"pack": 0, "h2d": 0, "launch": 0, "d2h": 0, "loose": 0}
+    per_eval = []
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(kernels, "pack_forced_inputs", spy("pack", kernels.pack_forced_inputs))
+    monkeypatch.setattr(convert, "to_device_packed", spy("h2d", convert.to_device_packed))
+    monkeypatch.setattr(kernels, "forced_eval_packed", spy("launch", kernels.forced_eval_packed))
+    monkeypatch.setattr(tengine, "from_device_packed", spy("d2h", tengine.from_device_packed))
+    monkeypatch.setattr(convert, "scan_inputs_to_torch",
+                        spy("loose", convert.scan_inputs_to_torch))
+    orig = TorchPlacementEngine.run_forced
+
+    def check(self, enc):
+        before = dict(calls)
+        got = orig(self, enc)
+        per_eval.append({k: calls[k] - before[k] for k in calls})
+        ref = convert.to_numpy(kernels.forced_eval(*convert.scan_inputs_to_torch(
+            enc.static, enc.carry, enc.xs, "cpu")))
+        for a, b in zip(got, ref):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+        return got
+
+    monkeypatch.setattr(TorchPlacementEngine, "run_forced", check)
+    run_scenario(TORCH, "forced_kernel", "tpu_binpack", deterministic)
+    assert per_eval
+    assert all(c == {"pack": 1, "h2d": 1, "launch": 1, "d2h": 1, "loose": 0}
+               for c in per_eval), per_eval
+
+
 # -- TestPreemptionParity through the port (tests/test_tpu_parity.py:238-400) ------
 
 
