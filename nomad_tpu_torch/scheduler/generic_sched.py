@@ -10,6 +10,10 @@ Copied from ``nomad_tpu/scheduler/generic_sched.py``
 into the PyTorch port, which imports nothing of ``nomad_tpu``. One
 addition: the ``device`` attribute, which the port's engine runs on.
 ``from ..tpu.integration import ...`` resolves to the port's engine.
+One change: the scheduler works on a copy of the job's latest
+deployment, so recording a placed canary never writes into the state
+store's own object (the reference appended to it, outside raft and on
+the leader only, also for plans that never committed).
 """
 from __future__ import annotations
 
@@ -188,9 +192,17 @@ class GenericScheduler:
         self.plan = self.eval.make_plan(self.job)
 
         if not self.batch:
+            # a copy: placing a canary appends its id to the deployment's
+            # placed_canaries below, and the stored deployment is the live
+            # state store's object — appending to it would record, outside
+            # raft and on the leader only, canaries whose plan may never
+            # commit (the store appends each committed canary itself,
+            # ``_update_deployment_placements``)
             self.deployment = self.state.latest_deployment_by_job_id(
                 self.eval.namespace, self.eval.job_id
             )
+            if self.deployment is not None:
+                self.deployment = self.deployment.copy()
 
         self.failed_tg_allocs = None
         ring_seed = 0

@@ -6,7 +6,12 @@ computeStop :699, computeUpdates :810, handleDelayedReschedules :833). Pure
 host-side logic — no device work.
 
 Copied from ``nomad_tpu/scheduler/reconcile.py``
-into the PyTorch port, which imports nothing of ``nomad_tpu``.
+into the PyTorch port, which imports nothing of ``nomad_tpu``. One
+change: once a deployment's canaries are promoted, ``_compute_stop``
+stops every older alloc that shares a canary's name, also when the group
+is not over its count (the reference stopped only as many as the group
+was over, so after an alloc was lost or preempted a destructive update
+re-placed a canary's name a second time).
 """
 from __future__ import annotations
 
@@ -521,14 +526,16 @@ class AllocReconciler:
             untainted = untainted.difference(canaries)
 
         remove = len(untainted) + len(migrate) - group.count
-        if remove <= 0:
-            return stop
-
-        untainted = filter_by_terminal(untainted)
 
         if not canary_state and canaries:
+            # promoted: an older alloc that shares a canary's name is the
+            # one that canary replaces. Stop every such alloc, also when
+            # the group is not over its count (an alloc lost or preempted
+            # since the canaries were placed leaves it at or under): the
+            # reference stopped only ``remove`` of them, and a destructive
+            # update then re-placed the rest under names the canaries hold
             canary_names = canaries.name_set()
-            for aid, alloc in list(untainted.difference(canaries).items()):
+            for aid, alloc in list(filter_by_terminal(untainted.difference(canaries)).items()):
                 if alloc.name in canary_names:
                     stop[aid] = alloc
                     self.result.stop.append(
@@ -536,8 +543,11 @@ class AllocReconciler:
                     )
                     del untainted[aid]
                     remove -= 1
-                    if remove == 0:
-                        return stop
+
+        if remove <= 0:
+            return stop
+
+        untainted = filter_by_terminal(untainted)
 
         if migrate:
             mnames = AllocNameIndex(self.job_id, group.name, group.count, migrate)

@@ -21,7 +21,10 @@ Two of the reference's throughput mechanisms are reproduced here:
   port-collision / device host checks.
 
 Copied from ``nomad_tpu/server/plan_apply.py``
-into the PyTorch port, which imports nothing of ``nomad_tpu``.
+into the PyTorch port, which imports nothing of ``nomad_tpu``. One
+change: ``PlanQueue.dequeue(timeout)`` on a disabled (follower's) queue
+waits out its timeout instead of returning at once, so a follower's
+planner does not spin while another server leads.
 """
 from __future__ import annotations
 
@@ -92,7 +95,16 @@ class PlanQueue:
         with self._cond:
             while not self._heap:
                 if not self.enabled:
-                    return None
+                    # a follower's queue: wait out the timeout (set_enabled
+                    # wakes it) rather than return at once, or the planner's
+                    # poll loop spins on every follower and holds the GIL
+                    # against the leader's threads (the reference returns
+                    # at once)
+                    remaining = None if deadline is None else deadline - time.monotonic()
+                    if remaining is None or remaining <= 0:
+                        return None
+                    self._cond.wait(timeout=remaining)
+                    continue
                 if deadline is None:
                     self._cond.wait()
                 else:

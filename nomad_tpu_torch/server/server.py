@@ -8,13 +8,17 @@ in-process equivalents of the RPC endpoint layer; a transport front-end
 (msgpack/gRPC) binds to them at the process boundary.
 
 Copied from ``nomad_tpu/server/server.py``
-into the PyTorch port, which imports nothing of ``nomad_tpu``. Two
-changes: ``ServerConfig.device`` (default ``"cuda"``) is the torch device
+into the PyTorch port, which imports nothing of ``nomad_tpu``. Changes:
+``ServerConfig.device`` (default ``"cuda"``) is the torch device
 the placement engine, the workers' schedulers and the ``DeviceBatcher``
 run on, and asking for CUDA where there is none raises at construction
 (pass ``"cpu"`` for the plain PyTorch path); the JAX device mesh is not
 ported: ``device_mesh=True`` with more than one visible CUDA device
-raises ``NotImplementedError`` (one device runs unsharded, as there).
+raises ``NotImplementedError`` (one device runs unsharded, as there);
+the leader drains the broker's failed queue every
+``FAILED_EVAL_REAP_INTERVAL_S`` (1 s) instead of on the 60 s unblock
+cadence; and the stats sweep reads the batcher's table through
+``DeviceBatcher.stats_snapshot()``, under its lock.
 """
 from __future__ import annotations
 
@@ -94,6 +98,15 @@ def leader_forward(rpc_method: str):
         return wrapper
 
     return deco
+
+
+# how often the leader drains the broker's failed queue (marks each eval
+# that exhausted its deliveries failed and creates its follow-up, which
+# itself waits 60 s). Nomad drains it at once (a blocking dequeue,
+# leader.go reapFailedEvaluations); the JAX package drains it on the 60 s
+# unblock cadence, which left a failed eval in the ready table for up to
+# a minute before its follow-up even started waiting
+FAILED_EVAL_REAP_INTERVAL_S = 1.0
 
 
 @dataclass
@@ -494,7 +507,7 @@ class Server:
         gen = self._leader_generation
         self._schedule_leader_task(gen, self.config.unblock_failed_interval,
                                    self.blocked_evals.unblock_failed)
-        self._schedule_leader_task(gen, self.config.unblock_failed_interval,
+        self._schedule_leader_task(gen, FAILED_EVAL_REAP_INTERVAL_S,
                                    self._reap_failed_evals)
         self._schedule_leader_task(gen, self.config.eval_gc_interval, self._create_gc_evals)
         self._schedule_leader_task(gen, 10.0, self.publish_stats_gauges)
@@ -546,8 +559,10 @@ class Server:
         _capacity.publish_gauges()
         metric_names.publish_family("nomad.autoscaler", self.autoscaler.stats())
         if self.device_batcher is not None:
+            # a copy taken under the batcher's lock: its dispatcher
+            # thread updates the table while this sweep reads it
             metric_names.publish_family(
-                "nomad.device_batcher", self.device_batcher.stats
+                "nomad.device_batcher", self.device_batcher.stats_snapshot()
             )
         metrics.set_gauge(
             "nomad.plan.queue_depth", self.plan_queue.stats().get("depth", 0)

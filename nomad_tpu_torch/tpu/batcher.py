@@ -592,6 +592,20 @@ class DeviceBatcher:
         with self._lock:
             return self.stats["dispatches"] > 0
 
+    def stats_snapshot(self) -> Dict[str, object]:
+        """A copy of ``stats`` taken under the lock its writers hold."""
+        with self._lock:
+            return dict(self.stats)
+
+    def wait_warm(self, timeout: Optional[float] = None) -> None:
+        """Return once outstanding bucket warming has finished: at once,
+        since the port compiles nothing per batch shape. The reference
+        joins its XLA prewarm threads here; the port's kernels build at
+        first use, in ``kernels.build_all``. Kept, with the reference's
+        signature, for boot sequences that call it before their timed
+        window (``timeout`` is accepted and unused)."""
+        return None
+
     def expect(self, n: int = 1) -> None:
         """Announce ``n`` encodes in flight that will submit here. The
         gather loop holds its window open (up to window_ms) while

@@ -35,6 +35,24 @@ def test_static_imports(path):
     assert not bad, f"{path}: {bad}"
 
 
+def test_msgpack_only_inside_functions():
+    """The wire codec's msgpack is imported inside ``encode`` / ``decode``
+    only: no module of the port imports it at import time, so the
+    in-process paths run where msgpack is missing."""
+    bad = []
+    for path in PORT_FILES:
+        tree = ast.parse(path.read_text())
+        for node in tree.body:
+            for sub in ast.walk(node) if not isinstance(
+                    node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)) else ():
+                if isinstance(sub, ast.Import) and any(
+                        a.name.split(".")[0] == "msgpack" for a in sub.names):
+                    bad.append((str(path.relative_to(REPO)), sub.lineno))
+                elif isinstance(sub, ast.ImportFrom) and (sub.module or "").split(".")[0] == "msgpack":
+                    bad.append((str(path.relative_to(REPO)), sub.lineno))
+    assert not bad, bad
+
+
 def _logger_name_prefix(call: ast.Call):
     """The literal start of a ``getLogger`` call's name: the string, or
     the leading text of an f-string; None when the name is not literal."""
@@ -349,6 +367,69 @@ def test_port_server_runs_with_jax_and_nomad_tpu_blocked():
         capture_output=True, text=True, timeout=240, env=env, cwd=str(REPO))
     assert out.returncode == 0, out.stdout + out.stderr
     assert "SERVER-ISOLATED-OK" in out.stdout
+
+
+_BLOCKED_CHURN_RUN = textwrap.dedent("""
+    import importlib.abc, sys, threading
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+    sys.modules["msgpack"] = None
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name == "nomad_tpu" or name.startswith("nomad_tpu."):
+                raise ImportError("blocked: " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    sys.path.insert(0, {repo!r})
+
+    import nomad_tpu_torch.chaos.replay
+    from nomad_tpu_torch import chaos
+    from nomad_tpu_torch.analysis import lock_order, shared_state
+    from nomad_tpu_torch.chaos import ChurnReplay, SLOGate, SLOThresholds, generate_trace
+    from nomad_tpu_torch.rpc import RPCError, transport
+    from nomad_tpu_torch.server import ServerConfig
+    from nomad_tpu_torch.trace import attribution, stitch
+
+    trace = generate_trace(seed=7, duration_s=2.0, n_nodes=8, n_jobs=3, tg_count=3,
+                           n_drains=1, n_expiries=1, n_hipri=1, n_fault_windows=1,
+                           leader_kill=True)
+    replay = ChurnReplay(seed=7, trace=trace, n_servers=2, n_nodes=8,
+                         config=ServerConfig(device="cpu", num_schedulers=2,
+                                             heartbeat_min_ttl=1.2, heartbeat_max_ttl=2.0,
+                                             eval_gc_interval=3600.0, device_min_placements=0),
+                         settle_timeout_s=25.0)
+    result = replay.run()
+    inv = result["invariants"]
+    assert inv["lost"] == inv["duplicated"] == inv["orphaned"] == 0 and inv["converged"], inv
+    assert result["leader_kills"] == 1, result["leader_kills"]
+    assert chaos.active() is None
+    assert sum(s.device_batcher.stats_snapshot()["dispatches"] for s in replay.servers) > 0
+    assert SLOGate(SLOThresholds(eval_ms_p99_max=None, slowest_inflight_ms_max=None,
+                                 throughput_min_allocs_per_s=None)).evaluate(result)["passed"]
+    assert result["bottleneck_report"]["entries"], result["bottleneck_report"]
+    assert lock_order.build_static_graph() and shared_state.build_static_shared()
+    assert not any(t.name.startswith("chaos-") and t.is_alive() for t in threading.enumerate())
+    assert sys.modules.get("msgpack") is None
+    assert not any(m == "nomad_tpu" or m.startswith("nomad_tpu.") for m in sys.modules)
+    assert sys.modules.get("jax") is None
+    print("CHURN-ISOLATED-OK")
+""")
+
+
+def test_churn_replay_runs_with_jax_nomad_tpu_and_msgpack_blocked():
+    """The churn modules import, and a tiny ChurnReplay (two servers on
+    the CPU, a leader kill, every eval through a batcher) runs, in a
+    process where importing jax, anything of nomad_tpu, or msgpack
+    fails: the in-process replay never touches the wire codec."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_CHURN_RUN.format(repo=str(REPO))],
+        capture_output=True, text=True, timeout=240, env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stdout + out.stderr[-4000:]
+    assert "CHURN-ISOLATED-OK" in out.stdout
 
 
 def test_server_default_config_without_cuda_raises(monkeypatch):
