@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main paths on one NVIDIA GPU and hold every
 kernel against its plain PyTorch version.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--churn-only | --wire-only]
 
 Run from the root of a checkout on a machine with one CUDA card, nvcc
 and PyTorch built for CUDA. Phases, each of which fails the run:
@@ -11,8 +11,9 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
 2. build: every kernel under nomad_tpu_torch/tpu/csrc/ compiled with nvcc
    for sm_90a (one nvcc per source, started together);
 3. kernel vs plain, int arm: the placement scan kernel against its plain
-   PyTorch version on the card, bit for bit, at 5,000 nodes and P = 512
-   (1,024 before the preemption slice; cut to make room) for each
+   PyTorch version on the card, bit for bit, at 5,000 nodes and P = 256
+   (1,024 before the preemption slice, 512 before the wire phases; cut
+   to make room) for each
    specialization of the step, at n_pad >= 32,768, and B = 3 evals in
    one launch against three single launches;
 4. kernel vs plain, float arm: the same variants in float32, held by the
@@ -32,9 +33,10 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    tensor entry, both timed;
 6. the scan's preemption branch (has_pre, int arm) against its plain
    version, bit for bit, at 5,000 nodes with C = 16 candidate slots: the
-   ``preempt`` variant (P = 1,024) and the ``preempt_forced`` variant
-   (the system preempt pass, P = 1,250); then B = 3 evals with C = 16, 0
-   and 5 in one launch against three single launches;
+   ``preempt`` variant (P = 512; 1,024 before the wire phases, cut to
+   make room) and the ``preempt_forced`` variant (the system preempt
+   pass, P = 1,250); then B = 3 evals with C = 16, 0 and 5 in one launch
+   against three single launches;
 7. the Harness slice: four evals of the C1M job mix (bench.py
    c1m_mixed_jobs templates 0, 10, 28, and 10 re-registered with its cpu
    raised by 1) through the port's scheduler Harness on CUDA at 5,000
@@ -70,10 +72,13 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
 10. victim for victim: evals (a)-(c) again through the port's Harness
    at 5,000 nodes, one at a time, placed by tpu_binpack on the card and
    by the host binpack stack from the same state: plans and eviction
-   sets (the same victims, in the same order) must be equal;
+   sets (the same victims, in the same order) must be equal (of the
+   fill (a), only the first job on the host since the wire phases);
 11. the main paths' own launches (the Harness evals, the last batched
-   launch of each server run, every K4 launch, the two has_pre launches
-   of the system slice that evicted on the most steps): the outputs the
+   launch of each server run, every K4 launch, the evicting has_pre
+   launch of the system slice with the fewest evicting steps; PRs 5-9
+   replayed the two with the most):
+   the outputs the
    main path's packed launch gave held against the plain version on its
    inputs (int bit for bit, float within the bound), then replayed
    through the same packed entry, equal to the main path's, with its
@@ -132,7 +137,31 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    count, the top 5 of ``bottleneck_report`` with its coverage, and a
    bound on the card's busy share; a failing run prints a 5 s timeline
    and the jobs short of their count. ``--churn-only`` builds the
-   kernels and runs only this phase (no kernels line, no result).
+   kernels and runs only this phase (no kernels line, no result);
+14. the wire cluster and the real-process harnesses (right after the
+   churn, run as (b), (c), (a): the serve phase's 5,120 watcher threads
+   while this process's heap is small): (a) three of the port's Servers in this process (ServerConfig
+   defaults, the float arm, 16 workers each), each on its own WireRaft
+   over TCP with a durable native log and behind its own RPCServer; the
+   C1M fleet through ``raft_apply``, SERVER_PLACEMENTS of the job mix
+   through ``Job.Register`` over the wire, then the leader's raft and RPC
+   stop (its Server stays up), a new leader is elected and 10,000 more
+   placements go through it. It fails unless both leaders launched K3,
+   every captured launch equals its plain version (within the float
+   bound), the survivors' FSMs hold the same allocs, no node is
+   overcommitted and the invariant sweep reads zero; it prints the
+   fleet's registration time, placements/s before and after, raft apply
+   ms p50/p99, the codec's encode ms and bytes a replicated entry and
+   the time to the new leader. (b) bench.py's chaos-crash-5K, exactly:
+   three ``crash_server`` processes (``--device cuda``, host binpack as
+   in the reference: the card runs nothing, and the script prints which
+   server processes held a CUDA context), the leader SIGKILLed, the
+   reference's gate (>= 5 allocs/s, new leader <= 5,000 ms, first commit
+   <= 10,000 ms, a snapshot-install rejoin, stitched coverage >= 0.9),
+   invariants zero on every replica. (c) bench.py's serve-100Kwatch,
+   exactly: 5,120 watchers across three processes, the reference's five
+   checks and its SLO gate. ``--wire-only`` builds the kernels and runs
+   only these three (no kernels line, no result).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -156,10 +185,12 @@ REPO = Path(__file__).resolve().parent
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 N_NODES = 5000
-# the scan variants of the earlier slices run at half their first depth
-# (P = 1,024 in PRs 1-2) to leave room in the time limit
-P_SCAN_VARIANT = 512
-P_VARIANT = 1024
+# the scan variants of the earlier slices run at a quarter of their
+# first depth (P = 1,024 in PRs 1-2, 512 in PRs 3-9) to leave room in the
+# time limit, and since the wire phases the has_pre variant at half
+# (P = 1,024 in PRs 3-9)
+P_SCAN_VARIANT = 256
+P_VARIANT = 512
 P_PREEMPT_FORCED = 1250
 SERVER_PLACEMENTS = 60_000
 SERVER_WORKERS = 16
@@ -523,7 +554,7 @@ def phase_forced(kernels, convert, engine, forced):
 
 def phase_has_pre(kernels, step, convert, engine):
     """The scan's preemption branch (int arm) against its plain version on
-    the card, bit for bit: the ``preempt`` variant (P = 1,024) and the
+    the card, bit for bit: the ``preempt`` variant (P = P_VARIANT) and the
     ``preempt_forced`` variant (P = 1,250) at N_NODES nodes with C = 16;
     then B = 3 evals of mixed candidate widths (C = 16, 0, 5) in one launch
     against three single launches."""
@@ -1330,7 +1361,11 @@ def phase_preempt_harness(kernels, seed: int):
     placed by ``tpu_binpack`` on the card and by the host ``binpack``
     stack from the same state. Plans, eviction sets (the same victim
     allocs, in the same order on each preemptor) and eval outcomes must
-    be equal. Returns per-eval records."""
+    be equal. Of the fill (a), only the first job is also placed on the
+    host (PRs 3-9 placed all eight there: ~45 s of host binpack, cut to
+    make room for the wire phases); the rest are placed on the card
+    only, building the state (b) and (c) evict from. Returns per-eval
+    records."""
     from nomad_tpu_torch import mock
     from nomad_tpu_torch.scheduler.testing import Harness
     from nomad_tpu_torch.structs import structs
@@ -1361,6 +1396,7 @@ def phase_preempt_harness(kernels, seed: int):
                 "failed_tgs": sorted(upd.failed_tg_allocs or {})}
 
     records = []
+    fills = 0
     with _Spy(kernels) as spy:
         for phase, job, kind in preempt_jobs(mock, structs, N_NODES):
             if phase == "d":
@@ -1370,6 +1406,10 @@ def phase_preempt_harness(kernels, seed: int):
                 h.state.scheduler_set_config(h.next_index(), preemption_config(structs, True))
             snap = h.state.snapshot()
             dev = place(h, job, kind)
+            if phase == "a":
+                fills += 1
+                if fills > 1:
+                    continue
             oracle = Harness(state=snap, device=DEVICE)
             oracle._next_index = h._next_index
             cfg = preemption_config(structs, service_on)
@@ -1433,6 +1473,24 @@ def c1m_mixed_jobs(pkg_mock, structs, total):
     return jobs
 
 
+def c1m_nodes(mock, seed: int):
+    """The C1M fleet (bench.py:483-488): N_NODES mock nodes with fixed
+    ids and seeded capacities."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nodes = []
+    for i in range(N_NODES):
+        n = mock.node()
+        n.id = f"{seed:08d}-0000-4000-8000-{i:012d}"
+        n.name = f"bench-{i}"
+        n.node_resources.cpu_shares = int(rng.choice([4000, 8000, 16000]))
+        n.node_resources.memory_mb = int(rng.choice([8192, 16384, 32768]))
+        n.compute_class()
+        nodes.append(n)
+    return nodes
+
+
 def phase_server(kernels, deterministic: bool, seed: int, chunked: bool = False):
     """The server slice at ServerConfig defaults (deterministic=False: the
     float arm) or with deterministic=True (the int arm), or, with
@@ -1443,8 +1501,6 @@ def phase_server(kernels, deterministic: bool, seed: int, chunked: bool = False)
     and the spy (the main path's launches and their inputs: the batched
     launches, the forced-node launches of the float run's system job,
     the chunk launches and chunked evals)."""
-    import numpy as np
-
     from nomad_tpu_torch.tpu.engine import TorchPlacementEngine
 
     from nomad_tpu_torch import mock
@@ -1456,7 +1512,6 @@ def phase_server(kernels, deterministic: bool, seed: int, chunked: bool = False)
     from nomad_tpu_torch.utils import phases
 
     arm = "chunked" if chunked else ("int" if deterministic else "float")
-    rng = np.random.default_rng(seed)
     server = Server(ServerConfig(
         num_schedulers=0, deterministic=deterministic, device=DEVICE,
         scheduler_algorithm="tpu_binpack_chunked" if chunked else "tpu_binpack"),
@@ -1465,13 +1520,7 @@ def phase_server(kernels, deterministic: bool, seed: int, chunked: bool = False)
     engine.reset_parity_samples()
     try:
         server.start()
-        for i in range(N_NODES):
-            n = mock.node()
-            n.id = f"{seed:08d}-0000-4000-8000-{i:012d}"
-            n.name = f"bench-{i}"
-            n.node_resources.cpu_shares = int(rng.choice([4000, 8000, 16000]))
-            n.node_resources.memory_mb = int(rng.choice([8192, 16384, 32768]))
-            n.compute_class()
+        for n in c1m_nodes(mock, seed):
             server.raft_apply(NODE_REGISTER, n)
         jobs = c1m_mixed_jobs(mock, structs, SERVER_PLACEMENTS)
         expected = sum(j.task_groups[0].count for j in jobs)
@@ -2023,6 +2072,7 @@ def phase_churn(kernels, step, parity, deterministic: bool, seed: int):
             seed=seed, trace=trace, n_servers=3, n_nodes=CHURN_NODES,
             config=ServerConfig(
                 num_schedulers=2, heartbeat_min_ttl=1.5, heartbeat_max_ttl=2.5,
+                heartbeat_grace=0.0,
                 eval_gc_interval=3600.0, watchdog_stall_s=10.0, flight_spill_dir=spill,
                 device=DEVICE, deterministic=deterministic),
             settle_timeout_s=90.0, warmup_counts=(50, 25))
@@ -2110,12 +2160,631 @@ def log_churn(rec, card):
         f"plain {h['plain_ms']:.1f} ms in all")
 
 
+# ---------------------------------------------------------------------------
+# the wire cluster, and the real-process crash and serve harnesses
+# ---------------------------------------------------------------------------
+
+# the wire cluster: three of the port's Servers in this process, each on
+# its own WireRaft over a durable data dir and behind its own RPCServer
+# (tests/test_wire_raft.py:255-310's arrangement at full width). The
+# election timeout sits well above a GIL stall of this process (48
+# workers, the batchers, six replicator threads, plan entries of ~1,000
+# allocs packed in Python), and the RPC timeout above one AppendEntries
+# of up to 512 such entries; the reference's defaults are 0.5-1.0 s and
+# 1.0 s, sized for one server a process
+WIRE_FAILOVER_PLACEMENTS = 10_000
+WIRE_RAFT = dict(election_timeout_min=2.0, election_timeout_max=4.0, heartbeat_interval=0.1,
+                 rpc_timeout=30.0, apply_timeout=120.0)
+# bench.py's chaos-crash-5K (bench.py:1263-1356) and serve-100Kwatch
+# (bench.py:1506-1600), exactly
+CRASH_TRACE = dict(duration_s=25.0, n_nodes=120, n_jobs=40, tg_count=25, stop_frac=0.25,
+                   rollout_frac=0.2, n_drains=2, n_expiries=2, n_hipri=2, n_fault_windows=0,
+                   n_preempt_waves=1, leader_kill=True)
+CRASH_SLO = dict(eval_ms_p99_max=None, slowest_inflight_ms_max=None,
+                 throughput_min_allocs_per_s=5.0, failover_new_leader_ms_max=5_000.0,
+                 failover_first_commit_ms_max=10_000.0, require_rejoin=True,
+                 stitched_attribution_coverage_min=0.9)
+CRASH_SETTLE_S = 150.0
+SERVE_TRACE = dict(duration_s=22.0, n_nodes=60, n_jobs=16, tg_count=16, stop_frac=0.2,
+                   rollout_frac=0.15, n_drains=1, n_expiries=1, n_hipri=1, n_fault_windows=0,
+                   leader_kill=False)
+SERVE_WATCHERS = 5120
+SERVE_SETTLE_S = 240.0
+SERVE_SLO = dict(eval_ms_p99_max=None, slowest_inflight_ms_max=None,
+                 throughput_min_allocs_per_s=1.0)
+
+
+def _percentiles(values):
+    vals = sorted(values)
+    if not vals:
+        return {"n": 0}
+    pick = lambda q: vals[min(len(vals) - 1, int(q * (len(vals) - 1) + 0.5))]  # noqa: E731
+    return {"n": len(vals), "p50": pick(0.5), "p99": pick(0.99), "max": vals[-1],
+            "mean": sum(vals) / len(vals)}
+
+
+class _WireSpy:
+    """Times every codec encode of a raft entry (``wire_raft.codec_encode``:
+    each replica's ``_append_locked``) with its bytes, and every
+    ``WireRaft.apply`` (the leader's raft apply, replication to a quorum
+    included); restored on exit."""
+
+    def __init__(self):
+        from nomad_tpu_torch.server import wire_raft
+
+        self.mod, self.encodes, self.applies = wire_raft, [], []
+
+    def __enter__(self):
+        mod, cls = self.mod, self.mod.WireRaft
+        self.orig = (mod.codec_encode, cls.apply)
+        orig_encode, orig_apply = self.orig
+
+        def encode(obj):
+            t0 = time.perf_counter()
+            out = orig_encode(obj)
+            self.encodes.append(((time.perf_counter() - t0) * 1e3, len(out)))
+            return out
+
+        def apply(raft, peer, entry_type, payload):
+            t0 = time.perf_counter()
+            try:
+                return orig_apply(raft, peer, entry_type, payload)
+            finally:
+                self.applies.append((time.perf_counter() - t0) * 1e3)
+
+        mod.codec_encode, cls.apply = encode, apply
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.codec_encode, self.mod.WireRaft.apply = self.orig
+        return False
+
+
+def phase_wire_cluster(kernels, step, parity, seed: int):
+    """Three of the port's Servers (ServerConfig defaults: the float arm,
+    on the card, 16 Workers each) on WireRaft over TCP with durable data
+    dirs, each behind its RPCServer with the whole endpoint surface. The
+    C1M fleet goes in through ``raft_apply`` on the leader and the server
+    phase's job mix (SERVER_PLACEMENTS) through ``Job.Register`` over the
+    wire; then the leader's WireRaft and RPCServer stop (its Server stays
+    up: the in-process stand-in of a kill), a new leader is elected, and
+    a second mix of WIRE_FAILOVER_PLACEMENTS goes in through it. Fails
+    unless the leader and then the new leader each launched K3, every
+    captured launch equals its plain version, both survivors' FSMs hold
+    the same allocs, no node is overcommitted and the invariant sweep
+    reads zero. Returns the record and the spy."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from nomad_tpu_torch import chaos, mock
+    from nomad_tpu_torch.rpc import RPCClient, RPCServer, bind_server
+    from nomad_tpu_torch.rpc import transport
+    from nomad_tpu_torch.server.fsm import NODE_REGISTER
+    from nomad_tpu_torch.server.server import Server, ServerConfig
+    from nomad_tpu_torch.server.wire_raft import LEADER, WireRaft, WireRaftConfig
+    from nomad_tpu_torch.server.worker import Worker
+    from nomad_tpu_torch.structs import structs
+    from nomad_tpu_torch.structs.funcs import allocs_fit
+
+    gc.collect()
+    transport.reset_rpc_stats()
+    base = tempfile.mkdtemp(prefix="wire-cluster-")
+    ids = [f"wire-s{i}" for i in range(3)]
+    rpcs = [RPCServer(host="127.0.0.1", port=0) for _ in ids]
+    addrs = {nid: rpc.addr for nid, rpc in zip(ids, rpcs)}
+    rafts = [WireRaft(rpc, {o: a for o, a in addrs.items() if o != nid},
+                      WireRaftConfig(node_id=nid, **WIRE_RAFT),
+                      data_dir=os.path.join(base, nid))
+             for nid, rpc in zip(ids, rpcs)]
+    # nothing heartbeats the fleet: a new leader's restored TTL timers
+    # must outlive the run, as the server phase's nodes never expire
+    servers = [Server(ServerConfig(num_schedulers=0, device=DEVICE, heartbeat_min_ttl=3600.0,
+                                   heartbeat_max_ttl=7200.0), raft=raft, name=nid)
+               for nid, raft in zip(ids, rafts)]
+    for server, rpc, raft in zip(servers, rpcs, rafts):
+        bind_server(server, rpc)
+        rpc.is_leader = raft.is_leader
+    stop = threading.Event()
+
+    def leader_addr_loop():
+        # followers forward writes to whoever raft says leads
+        while not stop.wait(0.1):
+            for rpc, raft in zip(rpcs, rafts):
+                lid = raft.leader_id
+                rpc.leader_addr = addrs.get(lid) if lid else None
+
+    clients, stopped_raft = [], set()
+    try:
+        for rpc in rpcs:
+            rpc.start()
+        for server in servers:
+            server.start()
+            for i in range(SERVER_WORKERS):
+                w = Worker(server, i)
+                server.workers.append(w)
+                w.start()
+        for raft in rafts:
+            raft.start()
+        threading.Thread(target=leader_addr_loop, name="wire-leader-addr", daemon=True).start()
+
+        def find_leader(min_term=0, exclude=(), timeout=60.0):
+            deadline = time.monotonic() + timeout
+            while time.monotonic() < deadline:
+                for i, raft in enumerate(rafts):
+                    if i not in exclude and raft.state == LEADER and raft.current_term > min_term:
+                        return i
+                time.sleep(0.01)
+            raise AssertionError(f"wire: no leader past term {min_term} in {timeout} s")
+
+        lead = find_leader()
+        leader = servers[lead]
+        fleet = c1m_nodes(mock, seed)
+        t0 = time.perf_counter()
+        for n in fleet:
+            leader.raft_apply(NODE_REGISTER, n)
+        fleet_s = time.perf_counter() - t0
+
+        def run_mix(jobs, at, what):
+            """Register ``jobs`` over the wire at server ``at`` and wait
+            until every placement is in its FSM; (seconds, placements,
+            the host clock when the first registration was committed)."""
+            client = RPCClient(*rpcs[at].addr, timeout=120.0)
+            clients.append(client)
+            expected = sum(j.task_groups[0].count for j in jobs)
+            state_fn = lambda: servers[at].fsm.state  # noqa: E731
+            before = state_fn().count_allocs_desired_run()
+            wall0 = time.perf_counter()
+            first = None
+            for job in jobs:
+                if not client.call("Job.Register", job):
+                    raise AssertionError(f"wire {what}: Job.Register of {job.id} gave no eval")
+                first = first or time.perf_counter()
+            deadline = time.monotonic() + 600
+            while (state_fn().count_allocs_desired_run() - before < expected
+                   and time.monotonic() < deadline):
+                time.sleep(0.02)
+            wall = time.perf_counter() - wall0
+            placed = state_fn().count_allocs_desired_run() - before
+            if placed != expected or not servers[at].drain_evals(60.0):
+                raise AssertionError(f"wire {what}: {placed} of {expected} placements "
+                                     f"committed")
+            return wall, placed, first
+
+        jobs1 = c1m_mixed_jobs(mock, structs, SERVER_PLACEMENTS)
+        jobs2 = c1m_mixed_jobs(mock, structs, WIRE_FAILOVER_PLACEMENTS)
+        for j in jobs2:
+            j.id = j.id.replace("c1m-", "wire2-")
+        with _Spy(kernels) as spy, _WireSpy() as wspy:
+            wall1, placed1, _ = run_mix(jobs1, lead, "before the failover")
+            launches1 = dict(kernels.LAUNCHES)
+            dispatch1 = {s.name: s.device_batcher.stats_snapshot()["dispatches"] for s in servers}
+            applies1, encodes1 = len(wspy.applies), len(wspy.encodes)
+            # the failover: the leader's raft and RPC stop, its Server not
+            old_term = rafts[lead].current_term
+            t_kill = time.perf_counter()
+            rafts[lead].close()
+            rpcs[lead].stop()
+            stopped_raft.add(lead)
+            lead2 = find_leader(min_term=old_term, exclude=(lead,))
+            new_leader_ms = (time.perf_counter() - t_kill) * 1e3
+            wall2, placed2, t_first = run_mix(jobs2, lead2, "after the failover")
+            first_commit_ms = (t_first - t_kill) * 1e3
+            launches2 = {k: v - launches1.get(k, 0) for k, v in kernels.LAUNCHES.items()}
+            dispatch2 = {s.name: s.device_batcher.stats_snapshot()["dispatches"] - dispatch1[s.name]
+                         for s in servers}
+        survivors = [i for i in range(3) if i != lead]
+        # the survivors' FSMs: the follower catches up to the new leader's
+        # applied index before the comparison
+        deadline = time.monotonic() + 120
+        while (len({rafts[i].last_applied for i in survivors}) > 1
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        views = {}
+        for i in survivors:
+            views[ids[i]] = sorted((a.id, a.node_id, a.desired_status, a.client_status)
+                                   for a in servers[i].fsm.state.allocs())
+        state = servers[lead2].fsm.state
+        expected = {(j.namespace, j.id): j.task_groups[0].count for j in jobs1 + jobs2}
+        inv = chaos.invariant_sweep(state, expected, set())
+        by_node = {}
+        for a in state.allocs():
+            if a.desired_status == structs.ALLOC_DESIRED_RUN and not a.terminal_status():
+                by_node.setdefault(a.node_id, []).append(a)
+        over = [n.name for n in state.nodes() if not allocs_fit(n, by_node.get(n.id, []))[0]]
+        rpc_table = transport.rpc_stats(wire=True)
+    finally:
+        stop.set()
+        for c in clients:
+            c.close()
+        for i, server in enumerate(servers):
+            server.stop()
+        for i, (raft, rpc) in enumerate(zip(rafts, rpcs)):
+            if i not in stopped_raft:
+                raft.close()
+                rpc.stop()
+        shutil.rmtree(base, ignore_errors=True)
+    k3 = "place_scan_f32"
+    bad = []
+    if launches1.get(k3, 0) < 1 or dispatch1[ids[lead]] < 1:
+        bad.append(f"the leader {ids[lead]} launched no K3 ({launches1}, {dispatch1})")
+    if launches2.get(k3, 0) < 1 or dispatch2[ids[lead2]] < 1:
+        bad.append(f"the new leader {ids[lead2]} launched no K3 ({launches2}, {dispatch2})")
+    if len({tuple(v) for v in views.values()}) != 1:
+        a, b = (set(v) for v in views.values())
+        bad.append(f"survivors' FSMs differ: {len(a ^ b)} allocs in one only")
+    if not (inv["lost"] == inv["duplicated"] == inv["orphaned"] == 0 and inv["converged"]):
+        bad.append(f"invariants {inv}")
+    if over:
+        bad.append(f"{len(over)} nodes overcommitted, e.g. {over[:3]}")
+    unported = spy.count("nomad.tpu_engine.unported")
+    fallback = spy.count("nomad.tpu_engine.fallback")
+    if unported or fallback:
+        bad.append(f"unported={unported} fallback={fallback}")
+    if bad:
+        raise AssertionError("wire cluster: " + "; ".join(bad))
+    held = hold_churn_launches(step, parity, spy.batched, True, "wire cluster")
+    enc_ms = [e[0] for e in wspy.encodes]
+    enc_bytes = [e[1] for e in wspy.encodes]
+    append = rpc_table.get("Raft.AppendEntries", {})
+    rec = {"fleet_s": fleet_s, "leader": ids[lead], "new_leader": ids[lead2],
+           "placed": (placed1, placed2), "wall_s": (wall1, wall2),
+           "placements_per_s": (placed1 / wall1, placed2 / wall2),
+           "new_leader_ms": new_leader_ms, "first_commit_ms": first_commit_ms,
+           "apply_ms": _percentiles(wspy.applies),
+           "apply_ms_before": _percentiles(wspy.applies[:applies1]),
+           "encode_ms": _percentiles(enc_ms), "encode_bytes": _percentiles(enc_bytes),
+           "encodes": (encodes1, len(wspy.encodes) - encodes1),
+           "launches": (launches1, launches2), "dispatches": (dispatch1, dispatch2),
+           "append_entries": {k: append.get(k) for k in ("calls", "errors", "req_bytes",
+                                                          "resp_bytes", "latency_ms_p50",
+                                                          "latency_ms_p99")},
+           "invariants": inv, "nodes_checked": len(state.nodes()),
+           "held": dict(zip(("launches", "evals", "worst_dscore", "plain_ms"), held)),
+           "launches_total": spy.launches, "captured": len(spy.batched)}
+    return rec, spy
+
+
+def log_wire(rec, card):
+    w1, w2 = rec["wall_s"]
+    p1, p2 = rec["placed"]
+    r1, r2 = rec["placements_per_s"]
+    log(f"wire cluster: 3 servers on WireRaft over TCP (durable native logs), the C1M fleet "
+        f"({N_NODES} nodes) registered through raft_apply in {rec['fleet_s']:.3f} s; "
+        f"{p1} placements through {rec['leader']} in {w1:.3f} s ({r1:.1f} placements/s); "
+        f"failover: new leader {rec['new_leader']} in {rec['new_leader_ms']:.1f} ms, first "
+        f"commit through it (Job.Register) {rec['first_commit_ms']:.1f} ms after the stop; "
+        f"{p2} placements through it in {w2:.3f} s ({r2:.1f} placements/s); on {card}")
+    a, ab = rec["apply_ms"], rec["apply_ms_before"]
+    log(f"  raft apply ms (leader, quorum commit + local apply): p50 {a['p50']:.3f} p99 "
+        f"{a['p99']:.3f} max {a['max']:.3f} over {a['n']} applies (before the failover: p50 "
+        f"{ab['p50']:.3f} p99 {ab['p99']:.3f})")
+    e, b = rec["encode_ms"], rec["encode_bytes"]
+    log(f"  codec encode of a replicated entry (every replica's append, wirefmt): ms p50 "
+        f"{e['p50']:.3f} p99 {e['p99']:.3f} mean {e['mean']:.3f}; bytes p50 {b['p50']} p99 "
+        f"{b['p99']} mean {b['mean']:.0f}; {rec['encodes'][0]} + {rec['encodes'][1]} encodes")
+    log(f"  Raft.AppendEntries over the wire: {json.dumps(rec['append_entries'], sort_keys=True)}")
+    l1, l2 = rec["launches"]
+    log(f"  K3 launches: leader {l1.get('place_scan_f32', 0)} (dispatches "
+        f"{json.dumps(rec['dispatches'][0], sort_keys=True)}), new leader "
+        f"{l2.get('place_scan_f32', 0)} (dispatches "
+        f"{json.dumps(rec['dispatches'][1], sort_keys=True)}); survivors' FSMs equal; "
+        f"invariants {json.dumps(rec['invariants'], sort_keys=True)}; {rec['nodes_checked']} "
+        f"nodes, none overcommitted")
+    h = rec["held"]
+    log(f"  every one of {h['launches']} captured launches ({h['evals']} evals) equal to the "
+        f"plain version on its inputs (float: within the bound, worst |dscore| "
+        f"{h['worst_dscore']}); plain {h['plain_ms']:.1f} ms in all")
+
+
+class _ContextWatch:
+    """Samples ``nvidia-smi --query-compute-apps`` every 2 s while a
+    real-process phase runs: the pids that hold a CUDA context, so the
+    phase can say whether its server processes touched the card."""
+
+    def __init__(self):
+        import threading
+
+        self.pids, self._stop = set(), threading.Event()
+        self._thread = threading.Thread(target=self._run, name="context-watch", daemon=True)
+
+    def _run(self):
+        while True:
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                    capture_output=True, text=True, timeout=30)
+                self.pids |= {int(x) for x in out.stdout.split() if x.strip().isdigit()}
+            except (OSError, subprocess.SubprocessError, ValueError):
+                pass
+            if self._stop.wait(2.0):
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=40)
+        return False
+
+
+def _diagnosed(cls):
+    """``cls`` (CrashReplay or ServeReplay) whose result also carries, for
+    every job short of (or over) its count at the end, its evals and its
+    allocs by status, read from the leader before the processes stop;
+    a failing phase prints them."""
+
+    class Diagnosed(cls):
+        def _extra_result(self):
+            out = super()._extra_result()
+            rows = []
+            try:
+                call = self._leader(timeout=10.0).proc.call
+                for (ns, jid), want in sorted(self._expected.items()):
+                    allocs = call("Job.Allocations", ns, jid, timeout=30.0)
+                    run = [a for a in allocs if a.desired_status == "run"]
+                    if len(run) == want and len({a.name for a in run}) == want:
+                        continue
+                    short = sum(1 for r in rows if r.startswith("job "))
+                    if short >= 8:
+                        rows.append(f"job {jid}: {len(run)}/{want} run (and more)")
+                        continue
+                    by = {}
+                    for a in allocs:
+                        k = f"{a.desired_status}/{a.client_status}"
+                        by[k] = by.get(k, 0) + 1
+                    evals = sorted(call("Job.Evaluations", ns, jid, timeout=30.0),
+                                   key=lambda e: e.create_index)
+                    rows.append(f"job {jid}: {len(run)}/{want} run; allocs {by}; evals "
+                                + str([(e.id[:8], e.status, e.triggered_by,
+                                        e.status_description[:40], e.create_index,
+                                        e.modify_index, e.blocked_eval[:8])
+                                       for e in evals[-8:]]))
+                rows.append(f"leader broker {call('Eval.BrokerStats', timeout=10.0)}")
+            except Exception as e:  # noqa: BLE001 — diagnostics only
+                rows.append(f"diagnostics failed: {e!r}")
+            out["diagnostics"] = rows
+            return out
+
+    Diagnosed.__name__ = cls.__name__
+    return Diagnosed
+
+
+def _log_real_process_failure(what, result):
+    for row in result.get("diagnostics") or []:
+        log(f"  {what} diagnostics: {row}")
+    for frame in (result.get("flight_tail") or [])[-2:]:
+        log(f"  {what} flight frame: {json.dumps(frame, default=str)[:2000]}")
+    log(f"  {what} failover {result.get('failover')}; errors {result.get('errors')}")
+    for row in result.get("heartbeat_pump") or []:
+        log(f"  {what} heartbeat pump: {json.dumps(row, sort_keys=True)}")
+
+
+def _run_real_process(replay):
+    """``replay.run()`` while tracking its server processes' pids and the
+    pids that hold a CUDA context; (result, wall s, child pids, child
+    pids with a context)."""
+    import threading
+
+    children, stop = set(), threading.Event()
+
+    def track():
+        while not stop.wait(0.5):
+            children.update(sp.proc.pid for sp in list(replay.procs.values())
+                            if sp.proc is not None)
+
+    tracker = threading.Thread(target=track, name="replay-pids", daemon=True)
+    tracker.start()
+    t0 = time.perf_counter()
+    try:
+        with _ContextWatch() as ctx:
+            result = replay.run()
+    finally:
+        stop.set()
+        tracker.join(timeout=5)
+    return result, time.perf_counter() - t0, sorted(children), sorted(children & ctx.pids)
+
+
+def phase_crash(seed: int):
+    """bench.py's chaos-crash-5K, exactly: three ``crash_server``
+    processes (``--device cuda``, host binpack as in the reference), the
+    leader SIGKILLed mid-trace, the killed server back from its data dir
+    through InstallSnapshot; the reference's gate. Returns the record."""
+    import gc
+
+    from nomad_tpu_torch.chaos import CrashReplay, SLOGate, SLOThresholds, generate_trace
+
+    gc.collect()
+    trace = generate_trace(seed=seed, **CRASH_TRACE)
+    replay = _diagnosed(CrashReplay)(seed=seed, trace=trace, n_servers=3,
+                                     n_nodes=CRASH_TRACE["n_nodes"],
+                                     settle_timeout_s=CRASH_SETTLE_S, device=DEVICE)
+    result, wall, children, with_context = _run_real_process(replay)
+    slo = SLOGate(SLOThresholds(**CRASH_SLO)).evaluate(result)
+    fo = result.get("failover") or {}
+    inv = result["invariants"]
+    counts = {k: v for k, v in (result.get("replica_run_counts") or {}).items() if v is not None}
+    bad = []
+    if not slo["passed"]:
+        bad.append(f"SLO gate {[c for c in slo['checks'] if c['passed'] is False]}")
+    if not (inv["lost"] == inv["duplicated"] == inv["orphaned"] == 0 and inv["converged"]):
+        bad.append(f"invariants {inv}")
+    if result["leader_kills"] != 1 or int(fo.get("snapshot_installs") or 0) < 1:
+        bad.append(f"leader_kills {result['leader_kills']}, failover {fo}")
+    if len(counts) != 3 or len(set(counts.values())) != 1:
+        bad.append(f"replica run counts {result.get('replica_run_counts')}")
+    if bad:
+        _log_real_process_failure("crash", result)
+        raise AssertionError("crash: " + "; ".join(bad) + f"; errors {result['errors'][:5]}")
+    return {"trace_events": len(trace), "wall_s": wall, "result": result, "slo": slo,
+            "children": children, "children_with_context": with_context}
+
+
+def pump_totals(result) -> dict:
+    """The heartbeat pump's tallies over the run, summed (the slowest
+    pass as the max)."""
+    out = {}
+    for row in result.get("heartbeat_pump") or []:
+        for k, v in row.items():
+            if isinstance(v, int):
+                out[k] = max(out.get(k, 0), v) if k == "slowest_pass_ms" else out.get(k, 0) + v
+    return out
+
+
+def _stitched_components(result):
+    rep = (result.get("stitched") or {}).get("report") or {}
+    return {e["component"]: e["seconds"] for e in rep.get("entries") or []}, rep.get("coverage")
+
+
+def log_crash(rec, card):
+    r = rec["result"]
+    fo = r["failover"]
+    comps, cov = _stitched_components(r)
+    log(f"crash (chaos-crash-5K): {rec['trace_events']} trace events over "
+        f"{CRASH_TRACE['duration_s']:.0f} s, {CRASH_TRACE['n_nodes']} nodes, 3 crash_server "
+        f"processes; wall {rec['wall_s']:.1f} s; total_allocs {r['total_allocs']} "
+        f"({r['throughput_allocs_per_s']} allocs/s); on {card}")
+    log(f"  failover: killed {fo.get('killed')}, new leader {fo.get('new_leader')} in "
+        f"{fo.get('time_to_new_leader_ms')} ms, first commit {fo.get('time_to_first_commit_ms')} "
+        f"ms, snapshot_installs {fo.get('snapshot_installs')} (snapshot index "
+        f"{fo.get('snapshot_index')}), rejoined {fo.get('rejoined')} in "
+        f"{fo.get('restart_catchup_ms')} ms")
+    log(f"  invariants {json.dumps(r['invariants'], sort_keys=True)}; replica run counts "
+        f"{json.dumps(r['replica_run_counts'], sort_keys=True)}")
+    log(f"  SLO gate passed={rec['slo']['passed']}: " + "; ".join(
+        f"{c['name']} {c['observed']} (bound {c['bound']})" for c in rec["slo"]["checks"]))
+    st = r["stitched"]
+    log(f"  stitched: {st['span_count']} spans, {st['trace_count']} traces across "
+        f"{st.get('processes')}, coverage {cov}, components "
+        f"{json.dumps(comps, sort_keys=True)}")
+    log(f"  the card runs nothing in this phase: the server processes place with host "
+        f"binpack as the reference's do (crash_server's scheduler_algorithm); child pids "
+        f"{rec['children']}, of them holding a CUDA context: {rec['children_with_context']}")
+    log(f"  heartbeat pump: {json.dumps(pump_totals(r), sort_keys=True)}")
+
+
+def phase_serve(seed: int):
+    """bench.py's serve-100Kwatch, exactly: 5,120 watchers parked in
+    blocking ``Eval.GetEval`` reads across three ``crash_server``
+    processes, two thirds as stale reads on followers, under the churn
+    trace; the reference's five checks and SLO gate. Returns the record."""
+    import gc
+
+    from nomad_tpu_torch.chaos import SLOGate, SLOThresholds, generate_trace
+    from nomad_tpu_torch.watch.serve import ServeReplay
+
+    gc.collect()
+    trace = generate_trace(seed=seed, **SERVE_TRACE)
+    replay = _diagnosed(ServeReplay)(seed=seed, trace=trace, n_servers=3,
+                                     n_nodes=SERVE_TRACE["n_nodes"],
+                                     settle_timeout_s=SERVE_SETTLE_S,
+                                     n_watchers=SERVE_WATCHERS, device=DEVICE)
+    result, wall, children, with_context = _run_real_process(replay)
+    serve = result.get("serve") or {}
+    wake = serve.get("wakeup_ms") or {}
+    slo = SLOGate(SLOThresholds(**SERVE_SLO)).evaluate(result)
+    checks = [
+        ("concurrent_watchers", serve.get("peak_concurrent_watchers", 0), ">= 5000",
+         serve.get("peak_concurrent_watchers", 0) >= 5000),
+        ("lost_wakeups", serve.get("lost_wakeups", -1), "== 0", serve.get("lost_wakeups", -1) == 0),
+        ("wakeup_p99_ms", wake.get("p99"), "<= 2000",
+         wake.get("p99") is not None and wake.get("p99") <= 2000.0),
+        ("follower_read_share", serve.get("follower_read_share", 0.0), ">= 0.5",
+         serve.get("follower_read_share", 0.0) >= 0.5),
+        ("stragglers", serve.get("stragglers", -1), "== 0", serve.get("stragglers", -1) == 0),
+    ]
+    inv = result["invariants"]
+    bad = [f"{n} {obs} (bound {b})" for n, obs, b, ok in checks if not ok]
+    if not slo["passed"]:
+        bad.append(f"SLO gate {[c for c in slo['checks'] if c['passed'] is False]}")
+    if not (inv["lost"] == inv["duplicated"] == inv["orphaned"] == 0 and inv["converged"]):
+        bad.append(f"invariants {inv}")
+    if bad:
+        _log_real_process_failure("serve", result)
+        raise AssertionError("serve: " + "; ".join(bad) + f"; errors {result['errors'][:5]}")
+    return {"trace_events": len(trace), "wall_s": wall, "result": result, "slo": slo,
+            "checks": checks, "children": children, "children_with_context": with_context}
+
+
+def log_serve(rec, card):
+    r = rec["result"]
+    s = r["serve"]
+    w = s["wakeup_ms"]
+    log(f"serve (serve-100Kwatch): {rec['trace_events']} trace events over "
+        f"{SERVE_TRACE['duration_s']:.0f} s, {SERVE_TRACE['n_nodes']} nodes, 3 crash_server "
+        f"processes, {SERVE_WATCHERS} watchers; wall {rec['wall_s']:.1f} s; total_allocs "
+        f"{r['total_allocs']} ({r['throughput_allocs_per_s']} allocs/s); on {card}")
+    log("  checks: " + "; ".join(f"{n} {obs} ({b}) passed={ok}" for n, obs, b, ok in rec["checks"])
+        + f"; SLO gate passed={rec['slo']['passed']}")
+    log(f"  wakeups {s['wakeups']} (ms p50 {w['p50']} p95 {w['p95']} p99 {w['p99']} max "
+        f"{w['max']}), spurious {s['spurious_wakeups']}, deadline idle {s['deadline_idle']}, "
+        f"ramp {s['ramp_s']} s to {s['ramp_parked']} parked, reads {s['reads_total']} "
+        f"{json.dumps(s['reads_by_role'], sort_keys=True)}, coalesce ratio "
+        f"{s['coalesce_ratio']}, beacon commits {s['beacon_commits']}, watcher errors "
+        f"{s['watcher_errors']}")
+    log(f"  invariants {json.dumps(r['invariants'], sort_keys=True)}; the card runs nothing in "
+        f"this phase (host binpack in the server processes); child pids {rec['children']}, of "
+        f"them holding a CUDA context: {rec['children_with_context']}; heartbeat pump "
+        f"{json.dumps(pump_totals(r), sort_keys=True)}")
+
+
+def memory_line() -> str:
+    """This process's resident set and the host's available memory."""
+    def field(path, key):
+        with open(path) as f:
+            for line in f:
+                if line.startswith(key):
+                    return int(line.split()[1]) / (1 << 20)
+        return float("nan")
+
+    return (f"rss {field('/proc/self/status', 'VmRSS:'):.2f} GiB, host available "
+            f"{field('/proc/meminfo', 'MemAvailable:'):.2f} GiB")
+
+
+def release_heap() -> None:
+    """Collect, then hand the freed heap back to the host (glibc)."""
+    import ctypes
+    import gc
+
+    gc.collect()
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        pass
+
+
+def wire_phases(kernels, step, parity, seed, card, stamp):
+    """The crash and the serve harnesses (their harness threads and 5,120
+    watchers while this process's heap is small), then the wire cluster
+    (three 70,000-alloc FSMs in this process)."""
+    crash = phase_crash(seed)
+    log_crash(crash, card)
+    stamp(f"crash done; {memory_line()}")
+    serve = phase_serve(seed)
+    log_serve(serve, card)
+    release_heap()
+    stamp(f"serve done; {memory_line()}")
+    rec, spy = phase_wire_cluster(kernels, step, parity, seed)
+    log_wire(rec, card)
+    del spy
+    release_heap()
+    stamp(f"wire cluster done; {memory_line()}")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--churn-only", action="store_true",
                     help="build the kernels and run the two churn replays only (prints no "
                          "kernels line and no result)")
+    ap.add_argument("--wire-only", action="store_true",
+                    help="build the kernels and run the wire cluster, crash and serve phases "
+                         "only (prints no kernels line and no result)")
     args = ap.parse_args()
 
     if not (REPO / "nomad_tpu_torch" / "tpu" / "csrc").is_dir():
@@ -2160,10 +2829,17 @@ def main() -> int:
     # behind) its float arm's eval p99 read 1,262 and 5,333 ms on an H100
     # against 507-877 ms run first, past the 5,000 ms gate once (the
     # collector's pauses under that heap are the likely cause, unmeasured)
+    if args.wire_only:
+        wire_phases(kernels, step, parity, args.seed, card, stamp)
+        log(f"card: {card}")
+        return 0
     churn = churn_phases()
     if args.churn_only:
         log(f"card: {card}")
         return 0
+    # the wire phases next, before the big kernel and server phases leave
+    # their heap behind (the churn gate's lesson, PR 9 run 10)
+    wire = wire_phases(kernels, step, parity, args.seed, card, stamp)
 
     worst = phase_variants(kernels, step, convert, engine)
     worst_f = phase_float_variants(kernels, step, convert, engine)
@@ -2315,9 +2991,13 @@ def main() -> int:
     for i, launch in enumerate(sys_spy.forced):
         rows["forced_eval"].append(replay_forced(kernels, forced, launch,
                                                  f"system slice K4 launch {i}")[:4])
-    pre = [launch for launch in sys_spy.batched if launch[0].dims["C"] > 0]
-    pre.sort(key=lambda launch: -evicting_steps(launch))
-    for i, launch in enumerate(pre[:2]):
+    # the evicting launch with the fewest evicting steps (PRs 5-9
+    # replayed the two with the most, ~60 s of the plain has_pre step;
+    # cut to make room for the wire phases)
+    pre = [launch for launch in sys_spy.batched
+           if launch[0].dims["C"] > 0 and evicting_steps(launch) > 0]
+    pre.sort(key=evicting_steps)
+    for i, launch in enumerate(pre[:1]):
         rows["place_scan_has_pre"].append(replay_batched(
             kernels, step, parity, launch, f"system slice has_pre launch {i}", False)[:4])
     stamp("replays done")
@@ -2330,7 +3010,8 @@ def main() -> int:
                        - sys_rec["launches"]["place_scan_has_pre"]
                        + churn_i["place_scan"] - churn_i["place_scan_has_pre"]),
         "place_scan_f32": (servers["float"][0]["launches"]["place_scan_f32"]
-                           + churn_f["place_scan_f32"]),
+                           + churn_f["place_scan_f32"]
+                           + wire["launches_total"]["place_scan_f32"]),
         "place_scan_has_pre": (sys_rec["launches"]["place_scan_has_pre"]
                                + churn_i["place_scan_has_pre"]),
         "forced_eval": sys_rec["launches"]["forced_eval"],

@@ -13,12 +13,12 @@ Three pieces (see each module's docstring for the contract):
   turns the run's trace gauges, throughput, and state-store invariant
   sweep into pass/fail.
 
-The reference's multi-process crash harness (``CrashReplay``,
-``ServerProcess``) drives real server processes over the wire and is not
-ported yet.
+- :mod:`.crash` — :class:`CrashReplay` plays the same trace against
+  real server processes (:mod:`.crash_server`, one
+  :class:`ServerProcess` each) over the wire, where the leader kill is a
+  SIGKILL -9.
 
-Copy of ``nomad_tpu/chaos/__init__.py`` without the crash harness's
-exports.
+Copy of ``nomad_tpu/chaos/__init__.py``.
 """
 from .injector import MODES, POINTS, ChaosFault, ChaosInjector, active, fire
 
@@ -27,6 +27,8 @@ from .injector import MODES, POINTS, ChaosFault, ChaosInjector, active, fire
 # lazily (PEP 562) to keep that edge acyclic and the hook import cheap.
 _LAZY = {
     "ChurnReplay": ("replay", "ChurnReplay"),
+    "CrashReplay": ("crash", "CrashReplay"),
+    "ServerProcess": ("crash", "ServerProcess"),
     "invariant_sweep": ("replay", "invariant_sweep"),
     "invariant_sweep_allocs": ("replay", "invariant_sweep_allocs"),
     "SLOGate": ("slo", "SLOGate"),
@@ -63,6 +65,8 @@ __all__ = [
     "trace_kind_counts",
     "trace_to_jsonable",
     "ChurnReplay",
+    "CrashReplay",
+    "ServerProcess",
     "invariant_sweep",
     "invariant_sweep_allocs",
     "SLOGate",

@@ -20,10 +20,10 @@ post-run state-store invariant sweep that the SLO gate consumes.
 
 Cluster plumbing is factored into overridable hooks (``_start_cluster``,
 ``_leader``, ``_leader_state``, ``_broker_stats``, ``_kill_leader``,
-``_post_trace``, ``_replica_run_counts``, ``_shutdown``) so the
-reference's multi-process crash harness (``chaos/crash.py``, not ported
-yet) can drive the same trace against a real wire-raft cluster where the
-leader kill is a SIGKILL -9.
+``_post_trace``, ``_replica_run_counts``, ``_shutdown``) so
+:class:`nomad_tpu_torch.chaos.crash.CrashReplay` can drive the same trace
+against a REAL multi-process wire-raft cluster where the leader kill is
+a SIGKILL -9.
 
 Copied from ``nomad_tpu/chaos/replay.py`` into the PyTorch port, which
 imports nothing of ``nomad_tpu``. The servers run on
@@ -166,6 +166,8 @@ class ChurnReplay:
         self.config = config or ServerConfig(
             heartbeat_min_ttl=1.5,
             heartbeat_max_ttl=2.5,
+            # the trace's TTL-expiry faults expire at the TTL itself
+            heartbeat_grace=0.0,
             eval_gc_interval=3600.0,
         )
         self.time_scale = float(time_scale)

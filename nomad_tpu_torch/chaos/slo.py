@@ -30,7 +30,7 @@ class SLOThresholds:
     require_zero_duplicated: bool = True
     require_converged: bool = True
     # failover MTTR bounds (crash-recovery runs; the result's "failover"
-    # block comes from the crash harness's trace.failover, not ported yet)
+    # block comes from nomad_tpu_torch.trace.failover via CrashReplay)
     failover_new_leader_ms_max: Optional[float] = None
     failover_first_commit_ms_max: Optional[float] = None
     require_rejoin: bool = False

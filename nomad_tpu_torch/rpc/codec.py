@@ -14,17 +14,23 @@ span becomes a child of the caller's span. Unknown envelope fields are
 ignored by older peers, so the trace field is wire-compatible both ways.
 
 Copied from ``nomad_tpu/rpc/codec.py`` into the PyTorch port, which
-imports nothing of ``nomad_tpu``. Two changes: ``msgpack`` is imported
-inside ``encode`` / ``decode`` only, so the in-process paths that never
-touch the wire (the churn replay, the RPC stats table) import without
-it; and the registry holds the port's own structs (``structs.structs``),
-the only wire types the port has so far.
+imports nothing of ``nomad_tpu``. Two changes: the bytes are packed and
+unpacked by the port's own copy of the msgpack format (``wirefmt``: the
+same bytes as ``msgpack.packb(..., use_bin_type=True)``, the same values
+as ``msgpack.unpackb(..., raw=False, strict_map_key=False)``), so the
+port does not import ``msgpack``; and the registry holds the wire types
+of the reference's registry that the port has: its own structs
+(``structs.structs``). The client's and the plugins' payload types, the
+ACL structs and ``AutopilotConfig`` come with the modules that define
+them.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 from typing import Any, Dict, Type
+
+from . import wirefmt
 
 _TYPE_KEY = "__t"
 
@@ -127,14 +133,10 @@ def _from_wire(obj: Any) -> Any:
 
 
 def encode(obj: Any) -> bytes:
-    import msgpack
-
     _ensure_registry()
-    return msgpack.packb(_to_wire(obj), use_bin_type=True)
+    return wirefmt.packb(_to_wire(obj))
 
 
 def decode(data: bytes) -> Any:
-    import msgpack
-
     _ensure_registry()
-    return _from_wire(msgpack.unpackb(data, raw=False, strict_map_key=False))
+    return _from_wire(wirefmt.unpackb(data))

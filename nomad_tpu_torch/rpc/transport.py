@@ -24,9 +24,12 @@ stitched trace.
 
 Copied from ``nomad_tpu/rpc/transport.py`` into the PyTorch port, which
 imports nothing of ``nomad_tpu``; its logger is
-``nomad_tpu_torch.rpc.server``, and ``RPCServer`` swaps its leader
-forwarding pool under a lock (``_forward_lock``): connection threads
-forward concurrently.
+``nomad_tpu_torch.rpc.server``, and ``RPCServer`` forwards to the leader
+over a pool of connections (``_forward_idle``, under ``_forward_lock``),
+one per concurrent forward: an ``RPCClient`` answers one call at a time,
+and the reference's single forwarding connection queued every write a
+follower relays behind the one in flight (Nomad multiplexes them on one
+session).
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ import ssl
 import struct
 import threading
 import time
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 from ..trace import context as xtrace
 from ..utils import metric_names, metrics
@@ -307,7 +310,8 @@ class RPCServer:
         # set to (host, port) of the leader for transparent forwarding
         self.leader_addr: Optional[Tuple[str, int]] = None
         self.is_leader: Callable[[], bool] = lambda: True
-        self._forward_pool: Optional["RPCClient"] = None
+        # idle connections to the leader, one taken per forward in flight
+        self._forward_idle: List["RPCClient"] = []
         self._forward_lock = threading.Lock()
         # cross-region federation (rpc.go:502 forwardRegion): resolves a
         # region name to that region's server RPC addrs, fed by gossip
@@ -473,15 +477,28 @@ class RPCServer:
         return resp
 
     def _forward(self, method: str, body) -> Any:
-        # connection threads forward concurrently: the pool is swapped
-        # under a lock, and each call uses the pool it read there
+        # connection threads forward concurrently, each on a connection
+        # of its own: idle ones to the current leader are reused, ones to
+        # a former leader closed
+        addr = self.leader_addr
+        stale = []
         with self._forward_lock:
-            pool = self._forward_pool
-            if pool is None or pool.addr != self.leader_addr:
-                if pool is not None:
-                    pool.close()
-                pool = self._forward_pool = RPCClient(*self.leader_addr, tls=self.tls)
-        return pool.call(method, *body, no_forward=True)
+            client = None
+            while self._forward_idle:
+                c = self._forward_idle.pop()
+                if c.addr == addr:
+                    client = c
+                    break
+                stale.append(c)
+        for c in stale:
+            c.close()
+        if client is None:
+            client = RPCClient(*addr, tls=self.tls)
+        try:
+            return client.call(method, *body, no_forward=True)
+        finally:
+            with self._forward_lock:
+                self._forward_idle.append(client)
 
     def _forward_region(self, region: str, method: str, body) -> Any:
         servers = self.region_servers(region) if self.region_servers else []
@@ -521,9 +538,9 @@ class RPCServer:
             except OSError:
                 pass
         with self._forward_lock:
-            pool, self._forward_pool = self._forward_pool, None
-        if pool is not None:
-            pool.close()
+            idle, self._forward_idle = self._forward_idle, []
+        for c in idle:
+            c.close()
         with self._region_pools_lock:
             pools = list(self._region_pools.values())
             self._region_pools.clear()

@@ -6,7 +6,15 @@ a delivery limit feeding the ``_failed`` queue, and a delay heap for
 ``wait_until`` evals.
 
 Copied from ``nomad_tpu/server/eval_broker.py``
-into the PyTorch port, which imports nothing of ``nomad_tpu``.
+into the PyTorch port, which imports nothing of ``nomad_tpu``. One
+change, Nomad's own since 1.4.3 (eval_broker.go): when a job's eval in
+flight is acked, the newest of the evals blocked behind it runs next and
+the older ones it supersedes become cancelable (``take_cancelable``; the
+leader marks them canceled through raft), where the reference ran every
+one in turn. A fleet's heartbeats lost at once make an eval per job per
+node; run one by one they kept a crashed-and-rejoined cluster busy past
+its settle (thousands blocked in the broker), each run reconciling the
+same job state the newest one reads.
 """
 from __future__ import annotations
 
@@ -54,6 +62,13 @@ class _PendingHeap:
             return None
         return heapq.heappop(self._heap)[2]
 
+    def drain_newest_first(self) -> List[Evaluation]:
+        """Empty the heap; the evals newest first (highest modify index,
+        then the latest pushed)."""
+        items = sorted(self._heap, key=lambda e: (e[2].modify_index, e[1]), reverse=True)
+        self._heap = []
+        return [e[2] for e in items]
+
     def peek(self) -> Optional[Evaluation]:
         if not self._heap:
             return None
@@ -96,6 +111,8 @@ class EvalBroker:
         self.job_evals: Dict[Tuple[str, str], str] = {}
         # (namespace, job id) -> heap of blocked-behind evals
         self.blocked: Dict[Tuple[str, str], _PendingHeap] = {}
+        # blocked evals a newer one superseded, for the leader to cancel
+        self.cancelable: List[Evaluation] = []
         # scheduler type -> ready heap
         self.ready: Dict[str, _PendingHeap] = {}
         # eval id -> unack record
@@ -289,12 +306,14 @@ class EvalBroker:
             namespaced = (unack.eval.namespace, unack.eval.job_id)
             if self.job_evals.get(namespaced) == eval_id:
                 del self.job_evals[namespaced]
-                # unblock the next eval for this job
-                blocked = self.blocked.get(namespaced)
+                # unblock the newest eval for this job; the older ones it
+                # supersedes become cancelable (Nomad eval_broker.go)
+                blocked = self.blocked.pop(namespaced, None)
                 if blocked is not None and len(blocked):
-                    nxt = blocked.pop()
-                    if not len(blocked):
-                        del self.blocked[namespaced]
+                    nxt, *older = blocked.drain_newest_first()
+                    for ev in older:
+                        self.evals.pop(ev.id, None)
+                    self.cancelable.extend(older)
                     self._enqueue_locked(nxt, nxt.type)
 
             requeued = self.requeue.pop(token, None)
@@ -366,6 +385,7 @@ class EvalBroker:
             self.evals.clear()
             self.job_evals.clear()
             self.blocked.clear()
+            self.cancelable.clear()
             self.ready.clear()
             self.unack.clear()
             self.requeue.clear()
@@ -373,6 +393,13 @@ class EvalBroker:
             self._delayed.clear()
             self._cond.notify_all()
         _trace.on_flush()
+
+    def take_cancelable(self, limit: int = 728) -> List[Evaluation]:
+        """Up to ``limit`` superseded evals, removed from the list (the
+        leader cancels them in batches of Nomad's size, 728)."""
+        with self._lock:
+            out, self.cancelable = self.cancelable[:limit], self.cancelable[limit:]
+            return out
 
     def stats(self) -> Dict[str, object]:
         with self._lock:
@@ -385,6 +412,7 @@ class EvalBroker:
                 "total_ready": total_ready,
                 "total_unacked": len(self.unack),
                 "total_blocked": sum(len(h) for h in self.blocked.values()),
+                "total_cancelable": len(self.cancelable),
                 "total_waiting": len(self.time_wait) + len(self._delayed),
                 "dequeue_waiters": self._dequeue_waiters,
                 "by_scheduler": by_sched,

@@ -13,6 +13,11 @@ while their heartbeats queue, and every expiry and recovery spawns
 node-update evals. Here each node has a deadline in one table, and one
 reaper thread (started with leadership, stopped with it) expires the
 deadlines that pass; re-arming a TTL is a dict write and a heap push.
+And, as Nomad's heartbeat.go does (``HeartbeatGrace``, 10 s by
+default), a node's deadline is its TTL plus ``grace``: the TTL handed
+back to the client is what it must beat within, the grace covers the
+network and a busy server. The reference has none, so on a loaded host a
+heartbeat a moment late marked its node down.
 """
 from __future__ import annotations
 
@@ -36,10 +41,12 @@ from ..utils.lock_witness import witness_lock
 
 
 class HeartbeatTimers:
-    def __init__(self, server, min_ttl: float = 10.0, max_ttl: float = 30.0) -> None:
+    def __init__(self, server, min_ttl: float = 10.0, max_ttl: float = 30.0,
+                 grace: float = 0.0) -> None:
         self.server = server
         self.min_ttl = min_ttl
         self.max_ttl = max_ttl
+        self.grace = grace
         self.logger = logging.getLogger("nomad_tpu_torch.heartbeat")
         self._lock = witness_lock("heartbeat.HeartbeatTimers._lock")
         self._cond = threading.Condition(self._lock)
@@ -78,7 +85,7 @@ class HeartbeatTimers:
         with self._cond:
             if not self.enabled:
                 return ttl
-            deadline, seq = time.monotonic() + ttl, next(self._seq)
+            deadline, seq = time.monotonic() + ttl + self.grace, next(self._seq)
             self._deadlines[node_id] = (deadline, seq)
             heapq.heappush(self._heap, (deadline, seq, node_id))
             if self._heap[0][1] == seq:

@@ -17,7 +17,10 @@ ported: ``device_mesh=True`` with more than one visible CUDA device
 raises ``NotImplementedError`` (one device runs unsharded, as there);
 the leader drains the broker's failed queue every
 ``FAILED_EVAL_REAP_INTERVAL_S`` (1 s) instead of on the 60 s unblock
-cadence; and the stats sweep reads the batcher's table through
+cadence, and on the same tick cancels the evals the broker superseded
+(Nomad's reapCancelableEvaluations; see ``eval_broker``); a heartbeat
+that reaches a follower raises ``NotLeaderError``; a node is marked
+down ``heartbeat_grace`` (Nomad's 10 s) after its TTL, not at it; and the stats sweep reads the batcher's table through
 ``DeviceBatcher.stats_snapshot()``, under its lock.
 """
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 
 from ..structs.structs import (
     EVAL_STATUS_BLOCKED,
+    EVAL_STATUS_CANCELLED,
     EVAL_STATUS_FAILED,
     EVAL_STATUS_PENDING,
     EVAL_TRIGGER_JOB_DEREGISTER,
@@ -63,7 +67,7 @@ from .fsm import (
 )
 from .heartbeat import HeartbeatTimers
 from .plan_apply import Planner, PlanQueue
-from .raft import InProcRaft
+from .raft import InProcRaft, NotLeaderError
 from .worker import Worker
 from ..utils.lock_witness import witness_rlock
 
@@ -124,6 +128,10 @@ class ServerConfig:
     device_min_placements: int = 24
     heartbeat_min_ttl: float = 10.0
     heartbeat_max_ttl: float = 30.0
+    # time past a node's TTL before it is marked down (Nomad's
+    # heartbeat_grace, 10 s by default; the reference has none: 0 gives
+    # its timing)
+    heartbeat_grace: float = 10.0
     eval_gc_interval: float = 300.0
     unblock_failed_interval: float = 60.0
     # -- capacity pressure (nomad_tpu/server/blocked_evals + autoscaler) --
@@ -285,7 +293,8 @@ class Server:
         )
         self.plan_queue = PlanQueue()
         self.heartbeaters = HeartbeatTimers(
-            self, self.config.heartbeat_min_ttl, self.config.heartbeat_max_ttl
+            self, self.config.heartbeat_min_ttl, self.config.heartbeat_max_ttl,
+            self.config.heartbeat_grace,
         )
         self.workers: List[Worker] = []
         self.planner: Optional[Planner] = None
@@ -503,8 +512,11 @@ class Server:
                     parity_sample_rate=self.config.parity_sample_rate,
                 ),
             )
-        self._leader_generation += 1
-        gen = self._leader_generation
+        # leadership observers run on threads of their own (wire raft
+        # starts one per change): the generation moves under the lock
+        with self._lock:
+            self._leader_generation += 1
+            gen = self._leader_generation
         self._schedule_leader_task(gen, self.config.unblock_failed_interval,
                                    self.blocked_evals.unblock_failed)
         self._schedule_leader_task(gen, FAILED_EVAL_REAP_INTERVAL_S,
@@ -599,8 +611,8 @@ class Server:
             self.pipeline.set_enabled(False)
         self.autoscaler.set_enabled(False)
         self.flight.disarm()
-        self._leader_generation += 1  # invalidates in-flight leader timers
         with self._lock:
+            self._leader_generation += 1  # invalidates in-flight leader timers
             for t in self._leader_timers:
                 t.cancel()
             self._leader_timers.clear()
@@ -642,7 +654,9 @@ class Server:
 
     def _reap_failed_evals(self) -> None:
         """Drain the _failed queue: mark failed + create follow-ups
-        (reference leader.go:505)."""
+        (reference leader.go:505); then cancel the evals the broker
+        superseded (Nomad's reapCancelableEvaluations, leader.go)."""
+        self._reap_cancelable_evals()
         from .eval_broker import FAILED_QUEUE
 
         while True:
@@ -663,6 +677,22 @@ class Server:
                 self.eval_broker.ack(evaluation.id, token)
             except Exception:  # noqa: BLE001
                 pass
+
+    def _reap_cancelable_evals(self) -> None:
+        """Mark canceled, through raft, every blocked eval the broker
+        dropped for a newer one of the same job."""
+        while True:
+            evals = self.eval_broker.take_cancelable()
+            if not evals:
+                return
+            updated = []
+            for ev in evals:
+                u = ev.copy()
+                u.status = EVAL_STATUS_CANCELLED
+                u.status_description = "canceled after more recent eval was processed"
+                u.update_modify_time()
+                updated.append(u)
+            self.raft_apply(EVAL_UPDATE, updated)
 
     def _create_gc_evals(self) -> None:
         """Enqueue internal _core GC evals (reference leader.go:441)."""
@@ -715,7 +745,14 @@ class Server:
         self.create_node_evals(node_id)
 
     def heartbeat(self, node_id: str) -> float:
-        """Node.UpdateStatus(ready) via TTL reset."""
+        """Node.UpdateStatus(ready) via TTL reset. Only the leader keeps
+        TTLs: a heartbeat that reaches a follower (one the transport could
+        not forward, no leader being known) raises ``NotLeaderError``, as
+        Nomad's forward() fails with "No cluster leader", so the client
+        tries another server. The reference answered it with a TTL from
+        the follower's disabled timers, and the heartbeat was lost."""
+        if not self.is_leader:
+            raise NotLeaderError(f"{self.name} is not the leader: heartbeat not recorded")
         node = self.fsm.state.node_by_id(node_id)
         if node is None:
             raise KeyError(f"node {node_id} not registered")
@@ -784,7 +821,9 @@ class Server:
         # first-job latency gauge: time from the first
         # registration this process serves to its first plan commit
         if self._first_job_t0 is None:
-            self._first_job_t0 = time.monotonic()
+            with self._lock:
+                if self._first_job_t0 is None:
+                    self._first_job_t0 = time.monotonic()
         # Consul Connect admission mutator: group services with a connect
         # stanza get their sidecar task + proxy port injected BEFORE the
         # job hits raft (job_endpoint_hook_connect.go:99)

@@ -8,9 +8,9 @@ acting as the scheduler's Planner and Ack/Nacking the broker.
 Copied from ``nomad_tpu/server/worker.py``
 into the PyTorch port, which imports nothing of ``nomad_tpu``. The
 follower-mode RPC client (``rpc.transport.LeaderConn``) is built only
-when a leader address is known, which needs the wire RPC layer the port
-does not have yet; an in-process server never reaches it. Each
-scheduler gets the server's ``device`` as it gets ``deterministic``.
+when a leader address is known (``server.get_leader_rpc_addr``, which the
+agent sets); an in-process server never reaches it. Each scheduler gets
+the server's ``device`` as it gets ``deterministic``.
 """
 from __future__ import annotations
 

@@ -7,8 +7,9 @@ and pipeline stamp, ``capacity`` the blocked-eval storm ledger,
 ``flight`` the leader's flight recorder and ``watchdog`` its liveness
 watchdog. ``attribution`` joins lifecycle and pipeline spans into the
 ranked critical-path ledger (``bottleneck_report``) and its stitched
-cross-process form; ``stitch`` merges span rings into per-trace trees.
-The crash harness's ``failover`` ledger is not ported yet.
+cross-process form; ``stitch`` merges span rings into per-trace trees;
+``failover`` records the crash harness's recovery episodes (imported
+from its module, as in the reference).
 
 Trimmed copy of ``nomad_tpu/trace/__init__.py``.
 """

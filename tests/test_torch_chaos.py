@@ -90,16 +90,23 @@ def test_generate_trace_equals_reference(kw, seed):
 
 
 def test_chaos_package_lazy_exports():
-    """The reference's lazy exports, bar the crash harness's."""
+    """The reference's lazy exports, the crash harness's included."""
+    from nomad_tpu import chaos as jchaos
+    from nomad_tpu_torch.chaos import crash as tcrash
+
     assert tchaos.generate_trace is ttrace.generate_trace
     assert tchaos.ChurnReplay is ChurnReplay
     assert tchaos.SLOGate is tslo.SLOGate
     assert tchaos.invariant_sweep_allocs is t_sweep
+    assert tchaos.CrashReplay is tcrash.CrashReplay
+    assert tchaos.ServerProcess is tcrash.ServerProcess
+    assert issubclass(tchaos.CrashReplay, ChurnReplay)
     for name in ("ChaosEvent", "trace_kind_counts", "trace_to_jsonable", "invariant_sweep",
                  "SLOThresholds"):
         assert getattr(tchaos, name) is not None
+    assert sorted(tchaos.__all__) == sorted(jchaos.__all__)
     with pytest.raises(AttributeError):
-        tchaos.CrashReplay  # noqa: B018 — not ported yet
+        tchaos.NoSuchExport  # noqa: B018
 
 
 # ---------------------------------------------------------------------------
@@ -607,7 +614,7 @@ def _config(**kw):
     # the reference tests' cluster (tests/test_chaos.py), on the CPU, with
     # every eval through the batcher (device_min_placements=0)
     return ServerConfig(device="cpu", num_schedulers=2, heartbeat_min_ttl=1.2,
-                        heartbeat_max_ttl=2.0, eval_gc_interval=3600.0,
+                        heartbeat_max_ttl=2.0, heartbeat_grace=0.0, eval_gc_interval=3600.0,
                         device_min_placements=0, **kw)
 
 
@@ -746,8 +753,10 @@ def test_heartbeat_ttls_expire_as_the_reference_does():
     from nomad_tpu_torch import mock as tmock
     from nomad_tpu_torch.server import Server as TServer
 
+    # the reference's timing: no grace past the TTL (the port's default
+    # is Nomad's 10 s; tests/test_torch_crash.py holds it)
     t_status, t_active, reapers = _ttl_run(
-        TServer, lambda **kw: ServerConfig(device="cpu", **kw), tmock)
+        TServer, lambda **kw: ServerConfig(device="cpu", heartbeat_grace=0.0, **kw), tmock)
     j_status, j_active, _ = _ttl_run(JServer, JServerConfig, jmock)
     assert t_status == j_status == {"beating": "ready", "silent": "down"}
     assert t_active == j_active == 1

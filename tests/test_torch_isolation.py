@@ -36,20 +36,17 @@ def test_static_imports(path):
 
 
 def test_msgpack_only_inside_functions():
-    """The wire codec's msgpack is imported inside ``encode`` / ``decode``
-    only: no module of the port imports it at import time, so the
-    in-process paths run where msgpack is missing."""
+    """No module of the port imports ``msgpack``, at module level or
+    inside a function: the wire codec packs and unpacks the msgpack
+    format with the port's own ``rpc/wirefmt.py``."""
     bad = []
     for path in PORT_FILES:
-        tree = ast.parse(path.read_text())
-        for node in tree.body:
-            for sub in ast.walk(node) if not isinstance(
-                    node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)) else ():
-                if isinstance(sub, ast.Import) and any(
-                        a.name.split(".")[0] == "msgpack" for a in sub.names):
-                    bad.append((str(path.relative_to(REPO)), sub.lineno))
-                elif isinstance(sub, ast.ImportFrom) and (sub.module or "").split(".")[0] == "msgpack":
-                    bad.append((str(path.relative_to(REPO)), sub.lineno))
+        for sub in ast.walk(ast.parse(path.read_text())):
+            if isinstance(sub, ast.Import) and any(
+                    a.name.split(".")[0] == "msgpack" for a in sub.names):
+                bad.append((str(path.relative_to(REPO)), sub.lineno))
+            elif isinstance(sub, ast.ImportFrom) and (sub.module or "").split(".")[0] == "msgpack":
+                bad.append((str(path.relative_to(REPO)), sub.lineno))
     assert not bad, bad
 
 
@@ -432,6 +429,81 @@ def test_churn_replay_runs_with_jax_nomad_tpu_and_msgpack_blocked():
     assert "CHURN-ISOLATED-OK" in out.stdout
 
 
+_BLOCKED_CRASH_SERVER = textwrap.dedent("""
+    import importlib.abc, os, signal, sys, threading, time
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+    sys.modules["msgpack"] = None
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name == "nomad_tpu" or name.startswith("nomad_tpu."):
+                raise ImportError("blocked: " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    sys.path.insert(0, {repo!r})
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.chaos import crash_server
+    from nomad_tpu_torch.rpc import RPCClient, RPCError
+
+    port = {port}
+    out = {{}}
+
+    def drive():
+        try:
+            c = RPCClient("127.0.0.1", port, timeout=10.0)
+            deadline = time.monotonic() + 60
+            while True:
+                try:
+                    if c.call("Status.ping", no_forward=True, timeout=1.0) == "pong":
+                        break
+                except (RPCError, OSError):
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.1)
+            while c.call("Operator.RaftStats", no_forward=True)["state"] != "leader":
+                if time.monotonic() > deadline:
+                    raise AssertionError("no leader")
+                time.sleep(0.05)
+            node = mock.node()
+            assert c.call("Node.Register", node) > 0
+            got = c.call("Node.GetNode", node.id)
+            assert got.id == node.id and got.name == node.name, got
+            out["ok"] = True
+            c.close()
+        finally:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    threading.Thread(target=drive, daemon=True).start()
+    rc = crash_server.main(["--node-id", "s0", "--rpc-port", str(port),
+                            "--data-dir", {data_dir!r}, "--device", "cpu"])
+    assert rc == 0 and out.get("ok"), out
+    assert sys.modules.get("msgpack") is None
+    assert not any(m == "nomad_tpu" or m.startswith("nomad_tpu.") for m in sys.modules)
+    assert sys.modules.get("jax") is None
+    print("CRASH-SERVER-ISOLATED-OK")
+""")
+
+
+def test_crash_server_serves_the_wire_with_jax_nomad_tpu_and_msgpack_blocked(tmp_path):
+    """One ``crash_server --device cpu`` (wire raft on its durable native
+    log, the RPC endpoints) boots, elects itself and takes a node
+    registration over the wire, in a process where importing jax,
+    anything of nomad_tpu, or msgpack fails."""
+    from nomad_tpu_torch.chaos.crash import _free_port
+
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    code = _BLOCKED_CRASH_SERVER.format(repo=str(REPO), port=_free_port(),
+                                        data_dir=str(tmp_path / "s0"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=240, env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stdout + out.stderr[-4000:]
+    assert "CRASH-SERVER-ISOLATED-OK" in out.stdout
+
+
 def test_server_default_config_without_cuda_raises(monkeypatch):
     """``Server(ServerConfig())`` asks for CUDA: without a card it raises
     before starting anything, rather than carrying on on the CPU."""
@@ -456,13 +528,22 @@ def test_batcher_on_cuda_without_cuda_raises(monkeypatch):
 
 def test_port_threaded_code_passes_the_lock_and_state_lint():
     """nomad-lint's lock-order, condition-discipline and
-    shared-state-discipline rules over the whole port, against an empty
-    baseline: a finding is fixed in the port, never baselined."""
+    shared-state-discipline rules over the whole port, with the wire
+    modules (wire raft, the RPC endpoints, the crash and serve harnesses),
+    and the two rules those modules answer to: blocking-read-discipline
+    (every read endpoint through ``blocking_read``) and
+    subprocess-discipline (every spawned server process bounded and
+    reaped). Against an empty baseline: a finding is fixed in the port,
+    never baselined."""
     baseline = Path(__file__).resolve().parent / "torch_lint_baseline.json"
     assert baseline.read_text().strip() == "[]"
     out = subprocess.run(
         [sys.executable, "-m", "nomad_tpu.analysis", "nomad_tpu_torch",
-         "--rule", "lock-order,condition-discipline,shared-state-discipline",
+         "--rule", "lock-order,condition-discipline,shared-state-discipline,"
+                   "blocking-read-discipline,subprocess-discipline",
          "--baseline", str(baseline)],
         capture_output=True, text=True, timeout=600, cwd=str(REPO))
     assert out.returncode == 0, out.stdout + out.stderr
+    for module in ("server/wire_raft.py", "rpc/endpoints.py", "chaos/crash.py",
+                   "chaos/crash_server.py", "watch/serve.py", "watch/blocking.py"):
+        assert (REPO / "nomad_tpu_torch" / module).is_file(), module
