@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main paths on one NVIDIA GPU and hold every
 kernel against its plain PyTorch version.
 
-    python3 chip_smoke.py [--seed N] [--churn-only | --wire-only]
+    python3 chip_smoke.py [--seed N] [--churn-only | --wire-only | --devices-only]
 
 Run from the root of a checkout on a machine with one CUDA card, nvcc
 and PyTorch built for CUDA. Phases, each of which fails the run:
@@ -143,10 +143,11 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    while this process's heap is small): (a) three of the port's Servers in this process (ServerConfig
    defaults, the float arm, 16 workers each), each on its own WireRaft
    over TCP with a durable native log and behind its own RPCServer; the
-   C1M fleet through ``raft_apply``, SERVER_PLACEMENTS of the job mix
-   through ``Job.Register`` over the wire, then the leader's raft and RPC
-   stop (its Server stays up), a new leader is elected and 10,000 more
-   placements go through it. It fails unless both leaders launched K3,
+   C1M fleet through ``raft_apply``, 20,000 placements of the job mix
+   (60,000 before the devices phase; cut to make room) through
+   ``Job.Register`` over the wire, then the leader's raft and RPC stop
+   (its Server stays up), a new leader is elected and 5,000 more (10,000
+   before) go through it. It fails unless both leaders launched K3,
    every captured launch equals its plain version (within the float
    bound), the survivors' FSMs hold the same allocs, no node is
    overcommitted and the invariant sweep reads zero; it prints the
@@ -162,6 +163,34 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    exactly: 5,120 watchers across three processes, the reference's five
    checks and its SLO gate. ``--wire-only`` builds the kernels and runs
    only these three (no kernels line, no result).
+
+15. the devices phase (after phase 10): GPU jobs from jobspec to the card.
+   The port's cuda device plugin, served in a process of its own over
+   the plugin transport, fingerprints the card (vendor nvidia, type gpu,
+   the card's name, one instance per ordinal) for node 0 of a 5,000-node
+   C1M-shaped fleet; every other node's DeviceManager holds a mock plugin
+   with 8 such GPUs, and every fourth node also a mock xilinx/fpga group
+   of 2. The port's Server (deterministic=True, 16 workers) gets, all
+   parsed from HCL by the port's jobspec: ``Job.Plan`` with its diff of
+   the first GPU job before it is registered (float arm, as the
+   reference's plan); a system job asking one GPU on every node (K4,
+   D = 5); 8 service jobs of 500 asking one GPU and 2 of 250 asking two
+   (K3, D = 5); then, alone, a job of 125 asking a GPU and an FPGA
+   (D = 6); ``Job.Plan`` of the first job at 100 more. It fails unless
+   every job is fully placed, no instance is assigned twice or past what
+   its node holds, no node is overcommitted, the D = 6 job lands on FPGA
+   nodes only, both plans place what they should and the diff shows the
+   count, every captured K3 and K4 launch equals its plain version (int
+   bit for bit, float within the bound), the D = 6 eval replayed by the
+   host binpack stack on its snapshot gives the same plan and instance
+   ids, and the plugin process reserves node 0's allocs as
+   CUDA_VISIBLE_DEVICES of the card's ordinal. It prints placements/s,
+   the K3 and K4 launches with their evals a launch and kernel ms by D,
+   the plans submitted and the partial commits among them (each an OCC
+   retry of its eval), Job.Plan's ms, and whether the plugin's
+   process (and a process that only fingerprints) holds a CUDA context.
+   ``--devices-only`` builds the kernels and runs only this phase (no
+   kernels line, no result).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -1741,31 +1770,39 @@ def phase_slice(kernels, seed: int):
             oracle.next_index(), structs.SchedulerConfiguration(scheduler_algorithm="binpack"))
         host = place(oracle, job, kind)
         records[k]["host_wall_ms"] = host["wall_ms"]
-        dev_allocs, host_allocs = records[k]["allocs"], host["allocs"]
-        if set(dev_allocs) != set(host_allocs):
-            raise AssertionError(f"eval {k + 1}: device and host placed different alloc names")
-        order = sorted(dev_allocs, key=lambda n: int(n.rsplit("[", 1)[1][:-1]))
-        diverged = [n for n in order if dev_allocs[n].node_id != host_allocs[n].node_id]
-        records[k]["host_diverged"] = len(diverged)
-        if diverged:
-            # The JAX engine's integer spec carries each node's capacity
-            # exponential as a running product, so two nodes that tie
-            # exactly in the host's float64 score can differ by a few
-            # Q27 units after evictions. A divergence must start at such
-            # a tie: the device's node scored as high as the host's pick.
-            first = diverged[0]
-            ha, da = host_allocs[first], dev_allocs[first]
-            metas = {m.node_id: m.norm_score for m in ha.metrics.score_meta}
-            if metas.get(da.node_id) != metas.get(ha.node_id):
-                raise AssertionError(
-                    f"eval {k + 1}: {first} placed on {da.node_name} by the device, "
-                    f"{ha.node_name} by the host, and the host does not score them equal")
-            log(f"eval {k + 1}: {len(diverged)} of {len(order)} placements differ from the "
-                f"host binpack stack, starting at {first}: host scores {ha.node_name} and "
-                f"{da.node_name} equal ({metas[ha.node_id]!r}); the device breaks the tie")
-        else:
-            log(f"eval {k + 1}: all {len(order)} placements equal to the host binpack stack")
+        records[k]["host_diverged"] = hold_host_plan(f"eval {k + 1}", records[k]["allocs"],
+                                                     host["allocs"])
     return records, captured, launches
+
+
+def hold_host_plan(what, dev_allocs, host_allocs) -> int:
+    """A device plan ({alloc name: alloc}) against the host binpack
+    stack's on the same state: the same alloc names, on the same nodes
+    unless a divergence starts at an exact host tie; returns the count of
+    placements that differ."""
+    if set(dev_allocs) != set(host_allocs):
+        raise AssertionError(f"{what}: device and host placed different alloc names")
+    order = sorted(dev_allocs, key=lambda n: int(n.rsplit("[", 1)[1][:-1]))
+    diverged = [n for n in order if dev_allocs[n].node_id != host_allocs[n].node_id]
+    if diverged:
+        # The JAX engine's integer spec carries each node's capacity
+        # exponential as a running product, so two nodes that tie
+        # exactly in the host's float64 score can differ by a few
+        # Q27 units after evictions. A divergence must start at such
+        # a tie: the device's node scored as high as the host's pick.
+        first = diverged[0]
+        ha, da = host_allocs[first], dev_allocs[first]
+        metas = {m.node_id: m.norm_score for m in ha.metrics.score_meta}
+        if metas.get(da.node_id) != metas.get(ha.node_id):
+            raise AssertionError(
+                f"{what}: {first} placed on {da.node_name} by the device, "
+                f"{ha.node_name} by the host, and the host does not score them equal")
+        log(f"{what}: {len(diverged)} of {len(order)} placements differ from the "
+            f"host binpack stack, starting at {first}: host scores {ha.node_name} and "
+            f"{da.node_name} equal ({metas[ha.node_id]!r}); the device breaks the tie")
+    else:
+        log(f"{what}: all {len(order)} placements equal to the host binpack stack")
+    return len(diverged)
 
 
 def bound(nbytes, ops):
@@ -2172,7 +2209,11 @@ def log_churn(rec, card):
 # allocs packed in Python), and the RPC timeout above one AppendEntries
 # of up to 512 such entries; the reference's defaults are 0.5-1.0 s and
 # 1.0 s, sized for one server a process
-WIRE_FAILOVER_PLACEMENTS = 10_000
+#: the wire cluster's placements before and after its failover (60,000
+#: and 10,000 before the devices phase; cut to make room for it:
+#: every captured launch is held against the plain float step)
+WIRE_PLACEMENTS = 20_000
+WIRE_FAILOVER_PLACEMENTS = 5_000
 WIRE_RAFT = dict(election_timeout_min=2.0, election_timeout_max=4.0, heartbeat_interval=0.1,
                  rpc_timeout=30.0, apply_timeout=120.0)
 # bench.py's chaos-crash-5K (bench.py:1263-1356) and serve-100Kwatch
@@ -2245,7 +2286,7 @@ def phase_wire_cluster(kernels, step, parity, seed: int):
     on the card, 16 Workers each) on WireRaft over TCP with durable data
     dirs, each behind its RPCServer with the whole endpoint surface. The
     C1M fleet goes in through ``raft_apply`` on the leader and the server
-    phase's job mix (SERVER_PLACEMENTS) through ``Job.Register`` over the
+    phase's job mix (WIRE_PLACEMENTS) through ``Job.Register`` over the
     wire; then the leader's WireRaft and RPCServer stop (its Server stays
     up: the in-process stand-in of a kill), a new leader is elected, and
     a second mix of WIRE_FAILOVER_PLACEMENTS goes in through it. Fails
@@ -2353,7 +2394,7 @@ def phase_wire_cluster(kernels, step, parity, seed: int):
                                      f"committed")
             return wall, placed, first
 
-        jobs1 = c1m_mixed_jobs(mock, structs, SERVER_PLACEMENTS)
+        jobs1 = c1m_mixed_jobs(mock, structs, WIRE_PLACEMENTS)
         jobs2 = c1m_mixed_jobs(mock, structs, WIRE_FAILOVER_PLACEMENTS)
         for j in jobs2:
             j.id = j.id.replace("c1m-", "wire2-")
@@ -2732,6 +2773,405 @@ def log_serve(rec, card):
         f"{json.dumps(pump_totals(r), sort_keys=True)}")
 
 
+# -- the devices phase: GPU jobs from jobspec to the card -------------------
+
+#: each node but the first: GPU_INSTANCES mock GPUs named as the host's
+#: card; every FPGA_EVERY-th node also FPGA_INSTANCES mock FPGAs
+GPU_INSTANCES, FPGA_INSTANCES, FPGA_EVERY = 8, 2, 4
+FPGA_NAME = "alveo-u250"
+#: the phase's service jobs: kind -> (jobs, count, GPUs a task, FPGAs a task);
+#: counts a quarter of 2,000 / 1,000 / 500 to fit the time limit (a
+#: partial commit re-runs a device job's eval, and every launch is held
+#: against the plain step, ~2.8 ms a step on an H100)
+GPU_JOBS = {"gpu1": (8, 500, 1, 0), "gpu2": (2, 250, 2, 0), "mixed": (1, 125, 1, 1)}
+
+
+def gpu_fleet(mock, n_nodes: int, seed: int, card_plugin, gpu_name: str):
+    """The devices phase's fleet: ``n_nodes`` C1M-shaped nodes, each
+    fingerprinted by its own ``DeviceManager``. Node 0 holds
+    ``card_plugin`` (the real CUDA plugin on the card); every other node
+    a mock plugin with GPU_INSTANCES instances of vendor nvidia, type gpu,
+    named ``gpu_name``; every FPGA_EVERY-th node also a mock xilinx/fpga
+    group of FPGA_INSTANCES. Returns (nodes, managers)."""
+    import numpy as np
+
+    from nomad_tpu_torch.client.devicemanager import DeviceManager
+    from nomad_tpu_torch.plugins.mock_device import MockDevicePlugin
+
+    rng = np.random.default_rng(seed)
+    nodes, managers = [], []
+    for i in range(n_nodes):
+        n = mock.node()
+        n.id = f"{seed:08d}-0000-4000-9000-{i:012d}"
+        n.name = f"gpu-{i}"
+        n.node_resources.cpu_shares = int(rng.choice([4000, 8000, 16000]))
+        n.node_resources.memory_mb = int(rng.choice([8192, 16384, 32768]))
+        plugins = [card_plugin] if i == 0 else [
+            MockDevicePlugin(vendor="nvidia", model=gpu_name, count=GPU_INSTANCES)]
+        if i % FPGA_EVERY == FPGA_EVERY - 1:
+            plugins.append(MockDevicePlugin(vendor="xilinx", model=FPGA_NAME,
+                                            count=FPGA_INSTANCES, device_type="fpga"))
+        dm = DeviceManager(plugins, fingerprint_interval=0)
+        dm.fingerprint_node(n)
+        n.compute_class()
+        nodes.append(n)
+        managers.append(dm)
+    return nodes, managers
+
+
+def gpu_job_hcl(job_id: str, kind: str, count: int, gpu_name: str, gpus: int = 1,
+                fpgas: int = 0) -> str:
+    """An HCL jobspec whose task asks for ``gpus`` of the card's GPUs and
+    ``fpgas`` FPGAs. The asks name vendor/type/name in full: in the
+    reference a two-part name is type/name (``RequestedDevice.id``), so
+    ``"nvidia/gpu"`` would ask for a device of type ``nvidia``."""
+    asks = [f'device "nvidia/gpu/{gpu_name}" {{\n          count = {gpus}\n        }}']
+    if fpgas:
+        asks.append(f'device "xilinx/fpga/{FPGA_NAME}" {{\n          count = {fpgas}\n        }}')
+    count_line = "" if kind == "system" else f"count = {count}"
+    body = "\n        ".join(asks)
+    return f"""job "{job_id}" {{
+  datacenters = ["dc1"]
+  type        = "{kind}"
+  group "train" {{
+    {count_line}
+    task "trainer" {{
+      driver = "mock_driver"
+      resources {{
+        cpu    = 100
+        memory = 128
+        {body}
+      }}
+    }}
+  }}
+}}
+"""
+
+
+def gpu_jobs(gpu_name: str, jobs=None):
+    """The phase's jobspecs in registration order, as (job id, HCL): the
+    system job asking one GPU on every node first, then the service jobs
+    of ``jobs`` (GPU_JOBS' shape), the mixed GPU + FPGA job last."""
+    out = [("gpu-system", gpu_job_hcl("gpu-system", "system", 1, gpu_name))]
+    for kind, (n_jobs, count, gpus, fpgas) in (jobs or GPU_JOBS).items():
+        for j in range(n_jobs):
+            job_id = f"{kind}-{j}"
+            out.append((job_id, gpu_job_hcl(job_id, "service", count, gpu_name, gpus, fpgas)))
+    return out
+
+
+#: the module:factory the devices phase's plugin process serves
+CARD_PLUGIN = "nomad_tpu_torch.plugins.cuda_device:plugin"
+#: the count the phase's second Job.Plan adds to the first GPU job
+PLAN_EXTRA = 100
+
+_CONTEXT_PROBE = """
+import ctypes, json, sys
+sys.path.insert(0, {repo!r})
+from nomad_tpu_torch.plugins.cuda_device import CUDADevicePlugin
+groups = CUDADevicePlugin().fingerprint()
+cuda = ctypes.CDLL("libcuda.so.1")
+dev, flags, active = ctypes.c_int(), ctypes.c_uint(), ctypes.c_int()
+rc = [cuda.cuInit(0), cuda.cuDeviceGet(ctypes.byref(dev), 0),
+      cuda.cuDevicePrimaryCtxGetState(dev, ctypes.byref(flags), ctypes.byref(active))]
+print(json.dumps({{"groups": len(groups), "rc": rc, "primary_context": bool(active.value)}}))
+"""
+
+
+def context_probe() -> dict:
+    """A process that only fingerprints with the cuda plugin, then asks
+    the driver whether device 0's primary context is active in it."""
+    out = subprocess.run([sys.executable, "-c", _CONTEXT_PROBE.format(repo=str(REPO))],
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        raise AssertionError(f"devices: the context probe failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def device_ids(alloc) -> list:
+    """An alloc's assigned device instances: [(type, instance id)]."""
+    return [(d.type, i) for t in alloc.allocated_resources.tasks.values()
+            for d in t.devices for i in d.device_ids]
+
+
+def phase_devices(kernels, step, forced, parity, seed: int):
+    """GPU jobs from jobspec to the card: the cuda plugin in a process of
+    its own fingerprints the card for node 0 of a C1M-shaped fleet of
+    N_NODES (``gpu_fleet``: every other node a mock GPU plugin, every
+    FPGA_EVERY-th also a mock FPGA); the port's in-process Server, int
+    arm, 16 workers; ``Job.Plan`` (``plan_job``, float arm as the
+    reference) of the first GPU job before it is registered; the GPU
+    system job (K4, D = 5), the GPU service jobs (K3, D = 5) and the GPU
+    + FPGA job (D = 6), all parsed from HCL (``gpu_jobs``); ``Job.Plan``
+    of the first job at PLAN_EXTRA more. Every job fully placed, no
+    instance assigned twice or past what its node holds, the D = 6 job on
+    FPGA nodes only, every captured K3 and K4 launch held against its
+    plain version, the D = 6 eval replayed by the host binpack stack on
+    its snapshot, node 0's allocs reserved by the plugin process as
+    CUDA_VISIBLE_DEVICES. Returns (record, spy)."""
+    import threading
+
+    import torch
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.jobspec import parse_job
+    from nomad_tpu_torch.plugins.device import ExternalDevicePlugin
+    from nomad_tpu_torch.plugins.launch import plugin_env
+    from nomad_tpu_torch.plugins.transport import spawn_plugin
+    from nomad_tpu_torch.scheduler.scheduler import new_scheduler
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.server.fsm import NODE_REGISTER
+    from nomad_tpu_torch.server.server import Server, ServerConfig
+    from nomad_tpu_torch.server.worker import Worker
+    from nomad_tpu_torch.structs import structs
+    from nomad_tpu_torch.structs.funcs import allocs_fit
+
+    t_phase = time.perf_counter()
+    gpu_name = torch.cuda.get_device_name(0)
+    ordinals = [str(i) for i in range(torch.cuda.device_count())]
+    card = ExternalDevicePlugin("cuda", spawn_plugin(
+        [sys.executable, "-m", "nomad_tpu_torch.plugins.launch", "device", CARD_PLUGIN],
+        env=plugin_env()))
+    managers, server = [], None
+    rec = {"gpu_name": gpu_name}
+    orig_submit = Worker.submit_plan
+    try:
+        # the pids holding a CUDA context, sampled through the phase
+        with _ContextWatch() as contexts:
+            got = [(g.vendor, g.type, g.name, [d.id for d in g.devices])
+                   for g in card.fingerprint()]
+            if got != [("nvidia", "gpu", gpu_name, ordinals)]:
+                raise AssertionError(f"devices: the cuda plugin process fingerprinted {got}")
+            rec["probe"] = context_probe()
+            t0 = time.perf_counter()
+            nodes, managers = gpu_fleet(mock, N_NODES, seed, card, gpu_name)
+            rec["fleet_s"] = time.perf_counter() - t0
+            got = [(d.vendor, d.type, d.name, [i.id for i in d.instances])
+                   for d in nodes[0].node_resources.devices]
+            if got != [("nvidia", "gpu", gpu_name, ordinals)]:
+                raise AssertionError(f"devices: node 0's devices are {got}")
+            fpga_nodes = {n.id for n in nodes if n.attributes.get(
+                f"device.xilinx.fpga.{FPGA_NAME}.count")}
+            server = Server(ServerConfig(num_schedulers=0, deterministic=True, device=DEVICE),
+                            name="smoke-devices")
+            server.start()
+            for n in nodes:
+                server.raft_apply(NODE_REGISTER, n)
+            specs = gpu_jobs(gpu_name)
+            jobs = {job_id: parse_job(hcl) for job_id, hcl in specs}
+            order = [job_id for job_id, _ in specs]
+            system_id, first_id, mixed_id = order[0], order[1], order[-1]
+            want = {j: (N_NODES if jobs[j].type == "system" else jobs[j].task_groups[0].count)
+                    for j in order}
+            for i in range(SERVER_WORKERS):
+                w = Worker(server, i)
+                server.workers.append(w)
+                w.start()
+            state = server.fsm.state
+            deadline = time.monotonic() + 600
+
+            def wait_placed(total):
+                while state.count_allocs_desired_run() < total and time.monotonic() < deadline:
+                    time.sleep(0.02)
+                if not server.drain_evals(60.0):
+                    raise AssertionError("devices: the broker did not drain")
+
+            # plans the workers submit, and the partial commits among them (a
+            # refreshed state comes back: the scheduler retries the eval)
+            plans, plans_lock = {"submitted": 0, "partial": 0}, threading.Lock()
+
+            def submit(worker, plan):
+                result, new_state = orig_submit(worker, plan)
+                with plans_lock:
+                    plans["submitted"] += 1
+                    plans["partial"] += new_state is not None
+                return result, new_state
+
+            def plan(job):
+                first = len(spy.batched)
+                t0 = time.perf_counter()
+                out = server.plan_job(job, diff=True)
+                return out, (time.perf_counter() - t0) * 1000.0, spy.batched[first:]
+
+            Worker.submit_plan = submit
+            with _Spy(kernels) as spy:
+                (ann, failed, _, jdiff), rec["plan_ms"], plan_launches = plan(
+                    copy.deepcopy(jobs[first_id]))
+                placed = ann.desired_tg_updates["train"].place if ann else None
+                if placed != want[first_id] or failed or jdiff["Type"] != "Added" or \
+                        not plan_launches:
+                    raise AssertionError(f"devices: Job.Plan of {first_id} placed {placed}, failed "
+                                         f"{failed}, diff {jdiff['Type']}, {len(plan_launches)} "
+                                         f"launches")
+                wall0 = time.perf_counter()
+                server.register_job(jobs[system_id])
+                wait_placed(want[system_id])
+                rec["system_s"] = time.perf_counter() - wall0
+                for job_id in order[1:-1]:
+                    server.register_job(jobs[job_id])
+                wait_placed(sum(want[j] for j in order[:-1]))
+                snap = state.snapshot()
+                t0 = time.perf_counter()
+                server.register_job(jobs[mixed_id])
+                wait_placed(sum(want.values()))
+                rec["mixed_s"] = time.perf_counter() - t0
+                rec["wall_s"] = time.perf_counter() - wall0
+                bigger = state.job_by_id("default", first_id).copy()
+                bigger.task_groups[0].count += PLAN_EXTRA
+                (ann2, failed2, _, diff2), rec["plan2_ms"], plan2_launches = plan(bigger)
+                count = [f for tg in diff2["TaskGroups"] for f in tg["Fields"]
+                         if f["Name"] == "Count"]
+                placed2 = ann2.desired_tg_updates["train"].place if ann2 else None
+                if (placed2 != PLAN_EXTRA or failed2 or not plan2_launches
+                        or diff2["Type"] != "Edited" or [(f["Old"], f["New"]) for f in count]
+                        != [(str(want[first_id]), str(want[first_id] + PLAN_EXTRA))]):
+                    raise AssertionError(f"devices: Job.Plan at +{PLAN_EXTRA} placed {placed2}, "
+                                         f"failed {failed2}, Count diff {count}")
+            Worker.submit_plan = orig_submit
+            launches, counted = spy.launches, spy.counted
+            rec["plans"] = dict(plans)
+            rec["evals_dequeued"] = counted.count("nomad.worker.dequeue_eval")
+            rec["engine_calls"] = counted.count("nomad.tpu_engine.handled")
+            rec["host_small"] = counted.count("nomad.tpu_engine.small_eval_host")
+            rec["placements"] = sum(want.values())
+            rec["placements_per_s"] = rec["placements"] / rec["wall_s"]
+            rec["launches"] = launches
+            rec["plan_launches"] = len(plan_launches) + len(plan2_launches)
+            rec["k3_launches"] = len(spy.batched) - rec["plan_launches"]
+            rec["k4_launches"] = len(spy.forced)
+            stats = dict(server.device_batcher.stats)
+            rec["evals_per_launch"] = stats["evals"] / max(stats["dispatches"], 1)
+            unported = counted.count("nomad.tpu_engine.unported")
+            fallback = counted.count("nomad.tpu_engine.fallback")
+            if unported or fallback or not rec["k3_launches"] or not rec["k4_launches"]:
+                raise AssertionError(f"devices: unported={unported} fallback={fallback} "
+                                     f"launches={launches} reasons {fallback_reasons(spy.reasons)}")
+
+            # every job fully placed; no instance twice, none past its node
+            live = {j: [a for a in state.allocs_by_job("default", j, True)
+                        if a.desired_status == structs.ALLOC_DESIRED_RUN
+                        and not a.terminal_status()]
+                    for j in order}
+            short = {j: len(live[j]) for j in order if len(live[j]) != want[j]}
+            if short:
+                raise AssertionError(f"devices: jobs short of their count: {short}")
+            by_node, ids = {}, {}
+            for j in order:
+                for a in live[j]:
+                    by_node.setdefault(a.node_id, []).append(a)
+                    ids.setdefault(a.node_id, []).extend(device_ids(a))
+            held = {n.id: {(d.type, i.id) for d in n.node_resources.devices for i in d.instances}
+                    for n in nodes}
+            for node_id, assigned in ids.items():
+                if len(assigned) != len(set(assigned)) or not set(assigned) <= held[node_id]:
+                    raise AssertionError(f"devices: node {node_id} assigned {sorted(assigned)} of "
+                                         f"{sorted(held[node_id])}")
+            over = [n.name for n in state.nodes() if not allocs_fit(n, by_node.get(n.id, []))[0]]
+            if over:
+                raise AssertionError(f"devices: {len(over)} nodes overcommitted, e.g. {over[:3]}")
+            off = [a.node_name for a in live[mixed_id] if a.node_id not in fpga_nodes]
+            if off:
+                raise AssertionError(f"devices: the D = 6 job placed on nodes without FPGAs: "
+                                     f"{off[:3]}")
+            rec["gpus_assigned"] = sum(1 for v in ids.values() for t, _ in v if t == "gpu")
+            rec["fpgas_assigned"] = sum(1 for v in ids.values() for t, _ in v if t == "fpga")
+
+            # node 0's allocs: the plugin process reserves the card
+            on_card = by_node.get(nodes[0].id, [])
+            envs = [managers[0].reserve([d for t in a.allocated_resources.tasks.values()
+                                         for d in t.devices]).envs for a in on_card]
+            card_env = {"CUDA_VISIBLE_DEVICES": ordinals[0]}
+            if not on_card or any(e != card_env for e in envs):
+                raise AssertionError(f"devices: node 0's reservations {envs}")
+            rec["node0"] = {"allocs": [a.job_id for a in on_card], "envs": envs}
+
+            # the D = 6 eval on its snapshot through the host binpack stack
+            ev = [e for e in state.evals_by_job("default", mixed_id)
+                  if e.triggered_by == structs.EVAL_TRIGGER_JOB_REGISTER][0].copy()
+            ev.status = structs.EVAL_STATUS_PENDING
+            oracle = Harness(state=snap, device=DEVICE)
+            oracle._next_index = state.latest_index + 1
+            oracle.state.scheduler_set_config(
+                oracle.next_index(), structs.SchedulerConfiguration(scheduler_algorithm="binpack"))
+            oracle.state.upsert_job(oracle.next_index(),
+                                    state.job_by_id("default", mixed_id).copy())
+            sched = new_scheduler("service", server.logger, oracle.snapshot(), oracle)
+            sched.deterministic, sched.ring_decorrelate, sched.device = True, True, DEVICE
+            t0 = time.perf_counter()
+            sched.process(ev)
+            rec["host_ms"] = (time.perf_counter() - t0) * 1000.0
+            host = {a.name: a for v in oracle.plans[-1].node_allocation.values() for a in v}
+            dev = {a.name: a for a in live[mixed_id]}
+            rec["host_diverged"] = hold_host_plan("devices: the D = 6 eval", dev, host)
+            same_node = [n for n in dev if dev[n].node_id == host[n].node_id]
+            differ = [n for n in same_node
+                      if sorted(device_ids(dev[n])) != sorted(device_ids(host[n]))]
+            if differ:
+                raise AssertionError(f"devices: instance ids differ from the host stack's: "
+                                     f"{differ[:3]}")
+
+            # every captured launch against its plain version: (D, float arm,
+            # evals that ran a step, steps run, kernel ms, plain ms, bound ms,
+            # bound by, worst |dscore|)
+            rec["holds"] = []
+            for i, launch in enumerate(spy.batched):
+                fresh, after, out, out_layout = launch
+                float_arm = fresh.parts()[0][0].dtype == torch.float32
+                ran = ~packed_scan_results(after, out, out_layout)[1][3]
+                rec["holds"].append((fresh.dims["D"], float_arm, int(ran.any(dim=1).sum()),
+                                     int(ran.sum()), *replay_batched(
+                                         kernels, step, parity, launch, f"devices K3 launch {i}",
+                                         float_arm)))
+            rec["k4"] = [replay_forced(kernels, forced, launch, f"devices K4 launch {i}")
+                         for i, launch in enumerate(spy.forced)]
+            rec["phase_s"] = time.perf_counter() - t_phase
+        rec["plugin_holds_context"] = card.client.process.pid in contexts.pids
+        return rec, spy
+    finally:
+        Worker.submit_plan = orig_submit
+        if server is not None:
+            server.stop()
+        for dm in managers[1:]:
+            dm.stop()
+        card.close()
+
+
+def log_devices(rec, card):
+    """The devices phase's lines."""
+    probe = rec["probe"]
+    log(f"devices: {N_NODES} nodes ({rec['gpus_assigned']} GPU and {rec['fpgas_assigned']} FPGA "
+        f"instances assigned, none twice, none overcommitted), fleet fingerprinted in "
+        f"{rec['fleet_s']:.3f} s; {rec['placements']} placements in {rec['wall_s']:.3f} s "
+        f"({rec['placements_per_s']:.1f} placements/s; system job {rec['system_s']:.3f} s, "
+        f"D = 6 job {rec['mixed_s']:.3f} s) on {card}; phase wall {rec['phase_s']:.1f} s")
+    log(f"  the cuda plugin's process: held a CUDA context during the phase (nvidia-smi): "
+        f"{'yes' if rec['plugin_holds_context'] else 'no'}; a process that only fingerprints: "
+        f"primary context active {probe['primary_context']} (driver rc {probe['rc']})")
+    log(f"  Job.Plan: {rec['plan_ms']:.1f} ms (new job, {GPU_JOBS['gpu1'][1]} placements), "
+        f"{rec['plan2_ms']:.1f} ms (+{PLAN_EXTRA}); {rec['plan_launches']} launches")
+    log(f"  launches {json.dumps(rec['launches'], sort_keys=True)}: K3 {rec['k3_launches']} "
+        f"(mean {rec['evals_per_launch']:.3f} evals a launch), K4 {rec['k4_launches']}; "
+        f"{rec['evals_dequeued']} evals dequeued, {rec['plans']['submitted']} plans submitted, "
+        f"{rec['plans']['partial']} partial commits (OCC retries of the eval), "
+        f"{rec['engine_calls']} engine calls, {rec['host_small']} retries below "
+        f"device_min_placements on the host")
+    for d in sorted({h[0] for h in rec["holds"]}):
+        for arm in (False, True):
+            rows = [h for h in rec["holds"] if h[0] == d and h[1] == arm]
+            if rows:
+                log(f"  K3 D={d} {'f32' if arm else 'int'}: {len(rows)} launches, "
+                    f"{sum(h[2] for h in rows)} evals, {sum(h[3] for h in rows)} steps; "
+                    f"kernel ms {' '.join(f'{h[4]:.3f}' for h in rows)}; plain ms "
+                    f"{sum(h[5] for h in rows):.1f} in all; bound ms "
+                    f"{' '.join(f'{h[6]:.6f}' for h in rows)} ({rows[0][7]}); all equal to "
+                    f"plain (worst |dscore| {max(h[8] for h in rows)})")
+    for i, k in enumerate(rec["k4"]):
+        log(f"  K4 launch {i}: kernel_ms={k[0]:.4f} plain_ms={k[1]:.2f} bound_ms={k[2]:.6f}")
+    log(f"  node 0 ({rec['gpu_name']}): allocs {rec['node0']['allocs']} reserved as "
+        f"{rec['node0']['envs']}; the D = 6 eval against the host binpack stack on its "
+        f"snapshot: {rec['host_diverged']} placements differ (host {rec['host_ms']:.1f} ms)")
+
+
 def memory_line() -> str:
     """This process's resident set and the host's available memory."""
     def field(path, key):
@@ -2785,6 +3225,9 @@ def main() -> int:
     ap.add_argument("--wire-only", action="store_true",
                     help="build the kernels and run the wire cluster, crash and serve phases "
                          "only (prints no kernels line and no result)")
+    ap.add_argument("--devices-only", action="store_true",
+                    help="build the kernels and run the devices phase only (prints no kernels "
+                         "line and no result)")
     args = ap.parse_args()
 
     if not (REPO / "nomad_tpu_torch" / "tpu" / "csrc").is_dir():
@@ -2831,6 +3274,11 @@ def main() -> int:
     # collector's pauses under that heap are the likely cause, unmeasured)
     if args.wire_only:
         wire_phases(kernels, step, parity, args.seed, card, stamp)
+        log(f"card: {card}")
+        return 0
+    if args.devices_only:
+        dev_rec, _spy = phase_devices(kernels, step, forced, parity, args.seed)
+        log_devices(dev_rec, card)
         log(f"card: {card}")
         return 0
     churn = churn_phases()
@@ -2940,6 +3388,10 @@ def main() -> int:
     log(f"harness launches {json.dumps(h_spy.launches, sort_keys=True)}")
     stamp("victim-for-victim Harness done")
 
+    dev_rec, _dev_spy = phase_devices(kernels, step, forced, parity, args.seed)
+    log_devices(dev_rec, card)
+    stamp("devices done")
+
     # the main paths' own kernel inputs, replayed: kernel vs plain, times, bound
     rows = {name: [] for name in ("place_scan", "place_scan_f32", "place_scan_has_pre",
                                   "forced_eval", "forced_eval_f32")}
@@ -3000,6 +3452,14 @@ def main() -> int:
     for i, launch in enumerate(pre[:1]):
         rows["place_scan_has_pre"].append(replay_batched(
             kernels, step, parity, launch, f"system slice has_pre launch {i}", False)[:4])
+    # the devices phase's launches, each held against plain in the phase
+    for h in dev_rec["holds"]:
+        rows["place_scan_f32" if h[1] else "place_scan"].append(h[4:8])
+        if h[1]:
+            worst_f = max(worst_f, h[8])
+        else:
+            worst = max(worst, h[8])
+    rows["forced_eval"] += [k[:4] for k in dev_rec["k4"]]
     stamp("replays done")
 
     mean = lambda v: sum(v) / len(v)  # noqa: E731
@@ -3008,13 +3468,15 @@ def main() -> int:
         "place_scan": (launches + servers["int"][0]["launches"]["place_scan"]
                        + sys_rec["launches"]["place_scan"]
                        - sys_rec["launches"]["place_scan_has_pre"]
-                       + churn_i["place_scan"] - churn_i["place_scan_has_pre"]),
+                       + churn_i["place_scan"] - churn_i["place_scan_has_pre"]
+                       + dev_rec["launches"]["place_scan"]),
         "place_scan_f32": (servers["float"][0]["launches"]["place_scan_f32"]
                            + churn_f["place_scan_f32"]
-                           + wire["launches_total"]["place_scan_f32"]),
+                           + wire["launches_total"]["place_scan_f32"]
+                           + dev_rec["launches"]["place_scan_f32"]),
         "place_scan_has_pre": (sys_rec["launches"]["place_scan_has_pre"]
                                + churn_i["place_scan_has_pre"]),
-        "forced_eval": sys_rec["launches"]["forced_eval"],
+        "forced_eval": sys_rec["launches"]["forced_eval"] + dev_rec["launches"]["forced_eval"],
         "forced_eval_f32": servers["float"][0]["launches"]["forced_eval_f32"],
         "chunk_scan": servers["chunked"][0]["launches"]["chunk_scan"],
     }

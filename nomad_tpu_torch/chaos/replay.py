@@ -32,7 +32,11 @@ caller asks for the CPU (``ServerConfig(device="cpu")``), with no move
 to the CPU when CUDA is missing. Every server of the cluster has its own
 ``DeviceBatcher``; after the leader transfer the new leader's batcher
 takes the launches. ``_shutdown`` stops every server even when one's
-``stop`` raises (the failure goes to ``errors``).
+``stop`` raises (the failure goes to ``errors``). Boot-time writes (the
+fleet's registration, the warmup jobs) retry past a leader change
+(``_boot_write``), where the reference's boot failed; the heartbeat
+pump starts before the warmup, so a slow first launch cannot expire the
+fleet.
 """
 from __future__ import annotations
 
@@ -60,6 +64,10 @@ _EVENT_RETRIES = 6
 _EVENT_BACKOFF_S = 0.05
 _RETRYABLE = (ChaosFault, NotLeaderError, RuntimeError, KeyError,
               RPCError, OSError)
+# a boot-time write (fleet registration, warmup jobs) retries past a
+# leader change for this long: the cluster may still be settling its
+# first elections, most of all on a loaded host
+_BOOT_WRITE_S = 60.0
 
 
 def invariant_sweep_allocs(
@@ -464,13 +472,47 @@ class ChurnReplay:
                 except (KeyError, ValueError):
                     pass  # promoted or failed concurrently
 
+    def _boot_write(self, leader, fn):
+        """``fn(leader)`` for a write before the trace starts; returns the
+        leader it ran on. A retryable error (the leader stepped down while
+        the cluster settles its first elections, RPC weather) re-resolves
+        the leader and retries with backoff, for up to _BOOT_WRITE_S: a
+        leader change at boot is legal raft, and a client retries past it
+        (the reference registered the fleet on the first leader it saw,
+        and its boot failed with NotLeaderError when that one stepped
+        down). Each boot write is idempotent."""
+        deadline = time.monotonic() + _BOOT_WRITE_S
+        delay = _EVENT_BACKOFF_S
+        while True:
+            try:
+                if leader is None:
+                    leader = self._leader()
+                fn(leader)
+                return leader
+            except _RETRYABLE:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(delay)
+                delay = min(delay * 2, 1.0)
+                leader = None
+
     def _boot(self) -> None:
         self._start_cluster()
         leader = self._leader()
         for _ in range(self.n_nodes):
             n = mock.node()
             self.node_ids.append(n.id)  # race-ok: bootstrap runs before the pump/nurse threads start
-            leader.register_node(n)
+            leader = self._boot_write(leader, lambda ldr, n=n: ldr.register_node(n))
+        # the fleet heartbeats from here on: the warmup's first launches
+        # (a cold card's context and kernel loads) can outlast the TTL,
+        # and a fleet left to expire meanwhile leaves the warmup jobs
+        # nothing to run on (the reference started the pump after the
+        # warmup; each warmup job then waited out its 60 s)
+        self._pump_thread = threading.Thread(
+            target=self._pump_heartbeats, name="chaos-heartbeat-pump",
+            daemon=True,
+        )
+        self._pump_thread.start()
         self._warmup(leader)
         # gauges measure the churn run, not boot/warmup
         lifecycle.reset()
@@ -478,11 +520,6 @@ class ChurnReplay:
         xtrace.reset()
         xtrace.set_process("chaos-driver")
         rpc_transport.reset_rpc_stats()
-        self._pump_thread = threading.Thread(
-            target=self._pump_heartbeats, name="chaos-heartbeat-pump",
-            daemon=True,
-        )
-        self._pump_thread.start()
         if self._nurse_enabled:
             self._nurse_thread = threading.Thread(
                 target=self._nurse_deployments, name="chaos-deploy-nurse",
@@ -533,7 +570,7 @@ class ChurnReplay:
 
         for i, count in enumerate(self.warmup_counts):
             job = self._make_job(f"chaos-warmup-{i}", count, 100, 64, 50)
-            leader.register_job(job)
+            leader = self._boot_write(leader, lambda ldr, job=job: ldr.register_job(job))
             deadline = time.monotonic() + 60.0
             while time.monotonic() < deadline:
                 run = [
@@ -544,7 +581,8 @@ class ChurnReplay:
                 if len(run) >= count:
                     break
                 time.sleep(0.05)
-            leader.deregister_job(job.namespace, job.id, purge=True)
+            leader = self._boot_write(
+                leader, lambda ldr, job=job: ldr.deregister_job(job.namespace, job.id, purge=True))
         if self.warmup_counts:
             leader.drain_evals(timeout=30.0)
         # warmup rows stay in the store (GC is off): exclude them from

@@ -20,9 +20,11 @@ same bytes as ``msgpack.packb(..., use_bin_type=True)``, the same values
 as ``msgpack.unpackb(..., raw=False, strict_map_key=False)``), so the
 port does not import ``msgpack``; and the registry holds the wire types
 of the reference's registry that the port has: its own structs
-(``structs.structs``). The client's and the plugins' payload types, the
-ACL structs and ``AutopilotConfig`` come with the modules that define
-them.
+(``structs.structs``), the device plugins' payload types
+(``plugins.base.PluginInfo`` and ``plugins.device``'s) and the ACL
+structs (``structs.acl``). The client drivers' payload types, the task
+directory (``TaskDir``) and ``AutopilotConfig`` come with the modules that
+define them.
 """
 from __future__ import annotations
 
@@ -67,6 +69,28 @@ def _register_all_structs() -> None:
 
     for name in dir(s):
         obj = getattr(s, name)
+        if isinstance(obj, type) and dataclasses.is_dataclass(obj):
+            _REGISTRY[obj.__name__] = obj
+    # non-struct payloads that ride raft/rpc
+    from ..plugins.base import PluginInfo
+    from ..plugins.device import (
+        ContainerReservation,
+        DetectedDevice,
+        DeviceGroup,
+        DeviceSpec,
+        DeviceStats,
+        Mount,
+    )
+
+    for cls in (PluginInfo, ContainerReservation, DetectedDevice, DeviceGroup,
+                DeviceSpec, DeviceStats, Mount):
+        _REGISTRY[cls.__name__] = cls
+
+    # ACL payloads (ride raft snapshots and RPC)
+    from ..structs import acl as acl_structs
+
+    for name in dir(acl_structs):
+        obj = getattr(acl_structs, name)
         if isinstance(obj, type) and dataclasses.is_dataclass(obj):
             _REGISTRY[obj.__name__] = obj
 

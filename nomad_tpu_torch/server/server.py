@@ -982,7 +982,8 @@ class Server:
         """Job.Plan: dry-run the scheduler against a snapshot with the
         submitted job inserted (job_endpoint.go Plan → scheduler harness);
         nothing raft-applies. Returns (annotations, failed_tg_allocs,
-        job_modify_index, job_diff)."""
+        job_modify_index, job_diff). The dry run places on the server's
+        device (``ServerConfig.device``), as its workers do."""
         from ..scheduler.scheduler import new_scheduler
         from ..scheduler.testing import Harness
         from ..structs.diff import job_diff
@@ -995,7 +996,7 @@ class Server:
             snap.delete_job(index, job.namespace, job.id)
         else:
             snap.upsert_job(index, job)
-        harness = Harness(snap)
+        harness = Harness(snap, device=self.config.device)
         ev = Evaluation(
             namespace=job.namespace,
             priority=job.priority,
@@ -1007,6 +1008,8 @@ class Server:
             annotate_plan=True,
         )
         sched = new_scheduler(job.type, self.logger, snap, harness)
+        if hasattr(sched, "device"):
+            sched.device = self.config.device
         sched.process(ev)
         annotations = harness.plans[-1].annotations if harness.plans else None
         failed = {}

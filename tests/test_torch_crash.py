@@ -875,3 +875,55 @@ def test_node_goes_down_a_grace_past_its_ttl():
         assert ServerConfig().heartbeat_grace == 10.0
     finally:
         srv.stop()
+
+
+def test_boot_write_retries_past_a_leader_change(monkeypatch):
+    """A boot-time write (the fleet's registration, the warmup jobs) that
+    meets a leader which stepped down after the harness resolved it (a
+    NotLeaderError in process, the same as an RPCError over the wire)
+    re-resolves the leader and goes on; with no leader coming back it
+    gives up after ``_BOOT_WRITE_S``. The serve test failed on a loaded
+    host with "crash-s2 is not the leader (leader=crash-s2)" at boot."""
+    from nomad_tpu_torch.chaos import replay
+    from nomad_tpu_torch.rpc.transport import RPCError
+    from nomad_tpu_torch.server.raft import NotLeaderError
+
+    calls = []
+
+    class StepsDown:
+        def __init__(self, name, error):
+            self.name, self.error = name, error
+
+        def register_node(self, n):
+            calls.append((self.name, n))
+            raise self.error
+
+    class Leader:
+        def register_node(self, n):
+            calls.append(("new", n))
+
+    new = Leader()
+
+    class Harness:
+        def __init__(self, leaders):
+            self.leaders = list(leaders)
+
+        def _leader(self):
+            return self.leaders.pop(0)
+
+    for error in (NotLeaderError("crash-s2 is not the leader (leader=crash-s2)"),
+                  RPCError("NotLeaderError: crash-s2 is not the leader (leader=crash-s2)")):
+        calls.clear()
+        got = replay.ChurnReplay._boot_write(
+            Harness([StepsDown("candidate", error), new]), StepsDown("old", error),
+            lambda ldr: ldr.register_node("n1"))
+        assert got is new
+        assert calls == [("old", "n1"), ("candidate", "n1"), ("new", "n1")]
+
+    class Leaderless:
+        def _leader(self):
+            raise RuntimeError("no leader within timeout")
+
+    monkeypatch.setattr(replay, "_BOOT_WRITE_S", 0.3)
+    with pytest.raises(RuntimeError, match="no leader"):
+        replay.ChurnReplay._boot_write(Leaderless(), None, lambda ldr: ldr.register_node("n1"))

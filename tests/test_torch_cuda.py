@@ -580,3 +580,39 @@ def test_batcher_slab_reuse_on_the_card(cuda):
     for i, (single, got) in enumerate(zip(singles + singles[:2], got1 + got2 + got3)):
         for a, b in zip(single, got):
             assert a.dtype == b.dtype and np.array_equal(a, b), f"eval {i}"
+
+
+def test_gpu_fleet_on_the_card_places_as_on_the_cpu(cuda):
+    """The device path on the card: the 50-node GPU fleet of
+    ``tests/test_torch_devices.py`` with node 0 fingerprinted by the real
+    cuda plugin (this host's card, ordinal 0), its GPU jobs from HCL
+    through the port's server on CUDA (int arm), placed as the same
+    server places them on the CPU, with the scan (K3) and the system
+    kernel (K4) launched at D = 5 and 6."""
+    import chip_smoke
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.jobspec import parse_job
+    from nomad_tpu_torch.plugins.cuda_device import CUDADevicePlugin
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.structs.structs import AllocatedDeviceResource
+    from test_torch_devices import FLEET_JOBS, N_FLEET, _place
+
+    name = torch.cuda.get_device_name(0)
+    nodes, managers = chip_smoke.gpu_fleet(mock, N_FLEET, 7, CUDADevicePlugin(), name)
+    assert [(d.vendor, d.type, d.name, [i.id for i in d.instances])
+            for d in nodes[0].node_resources.devices] == [("nvidia", "gpu", name, ["0"])]
+    kw = dict(num_schedulers=1, deterministic=True, ring_decorrelate=False,
+              pipeline_async=False, device_min_placements=0,
+              heartbeat_min_ttl=3600.0, heartbeat_max_ttl=7200.0)
+    kernels.reset_launch_counts()
+    on_card = _place(Server, ServerConfig(device="cuda", **kw), nodes, parse_job, name)
+    launches = dict(kernels.LAUNCHES)
+    on_cpu = _place(Server, ServerConfig(device="cpu", **kw), nodes, parse_job, name)
+    assert on_card == on_cpu
+    assert launches["place_scan"] >= sum(n for n, *_ in FLEET_JOBS.values())
+    assert launches["forced_eval"] >= 1
+    devs = on_card[("gpu-system", "gpu-0")][1]
+    assert devs == [("nvidia", "gpu", name, ("0",))]
+    env = managers[0].reserve([AllocatedDeviceResource(vendor="nvidia", type="gpu", name=name,
+                                                       device_ids=["0"])]).envs
+    assert env == {"CUDA_VISIBLE_DEVICES": "0"}

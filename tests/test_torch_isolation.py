@@ -50,6 +50,97 @@ def test_msgpack_only_inside_functions():
     assert not bad, bad
 
 
+def _module_exists(dotted: str) -> bool:
+    """Whether the port has module or package ``dotted`` (a file or a
+    directory with ``__init__.py`` under the repo root)."""
+    base = REPO.joinpath(*dotted.split("."))
+    return base.with_suffix(".py").is_file() or (base / "__init__.py").is_file()
+
+
+def _top_level_names(path: Path) -> set:
+    """Names a module binds at its top level (assignments, defs, classes,
+    imports), for ``from package import name``; with a PEP 562
+    ``__getattr__``, also the keys of its ``_LAZY`` table whose module
+    exists (``chaos/__init__.py``)."""
+    names = set()
+    body = ast.parse(path.read_text()).body
+    if any(isinstance(n, ast.FunctionDef) and n.name == "__getattr__" for n in body):
+        package = ".".join(path.relative_to(REPO).parent.parts)
+        for node in body:
+            if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                    and any(isinstance(t, ast.Name) and t.id == "_LAZY" for t in node.targets)):
+                for key, value in zip(node.value.keys, node.value.values):
+                    module = ast.literal_eval(value)[0]
+                    if _module_exists(f"{package}.{module}"):
+                        names.add(ast.literal_eval(key))
+    for node in body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0] for a in node.names)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            for t in targets:
+                names.update(n.id for n in ast.walk(t) if isinstance(n, ast.Name))
+    return names
+
+
+def _missing_port_imports(path: Path) -> list:
+    """Every import in ``path`` (module level or inside a function) of a
+    port module that does not exist: relative imports resolved against
+    the file's package, and absolute ``nomad_tpu_torch`` ones."""
+    rel = path.relative_to(REPO).with_suffix("")
+    package = list(rel.parts[:-1]) if rel.name != "__init__" else list(rel.parts[:-1])
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        targets = []
+        if isinstance(node, ast.ImportFrom):
+            if node.level:
+                base = package[:len(package) - (node.level - 1)] if node.level > 1 else package
+                module = ".".join(base + ([node.module] if node.module else []))
+            else:
+                module = node.module or ""
+            if module.split(".")[0] != "nomad_tpu_torch":
+                continue
+            if not _module_exists(module):
+                bad.append((node.lineno, module))
+                continue
+            init = REPO.joinpath(*module.split("."), "__init__.py")
+            for alias in node.names:
+                if alias.name == "*" or not init.is_file():
+                    continue
+                sub = f"{module}.{alias.name}"
+                if not _module_exists(sub) and alias.name not in _top_level_names(init):
+                    bad.append((node.lineno, sub))
+        elif isinstance(node, ast.Import):
+            targets = [a.name for a in node.names if a.name.split(".")[0] == "nomad_tpu_torch"]
+            bad += [(node.lineno, t) for t in targets if not _module_exists(t)]
+    return bad
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_imports_of_port_modules_resolve(path):
+    """Every import of a port module, at module level or inside a
+    function, names a module the port has: an entry point must not raise
+    ``ModuleNotFoundError`` for a module the port never copied (as
+    ``Server.plan_job`` did for ``structs.diff``)."""
+    assert not _missing_port_imports(path), f"{path}: {_missing_port_imports(path)}"
+
+
+def test_missing_import_check_finds_a_missing_module(tmp_path, monkeypatch):
+    """The check above on a module that imports, inside a function, one
+    port module that exists and one that does not."""
+    pkg = REPO / "nomad_tpu_torch" / "server"
+    src = ("def f():\n    from ..structs.structs import Job\n"
+           "    from ..structs.no_such_module import x\n    from . import plan_apply\n")
+    probe = pkg / "_probe_missing_import.py"
+    probe.write_text(src)
+    try:
+        assert _missing_port_imports(probe) == [(3, "nomad_tpu_torch.structs.no_such_module")]
+    finally:
+        probe.unlink()
+
+
 def _logger_name_prefix(call: ast.Call):
     """The literal start of a ``getLogger`` call's name: the string, or
     the leading text of an f-string; None when the name is not literal."""
@@ -502,6 +593,116 @@ def test_crash_server_serves_the_wire_with_jax_nomad_tpu_and_msgpack_blocked(tmp
                          timeout=240, env=env, cwd=str(REPO))
     assert out.returncode == 0, out.stdout + out.stderr[-4000:]
     assert "CRASH-SERVER-ISOLATED-OK" in out.stdout
+
+
+_BLOCKER = textwrap.dedent("""
+    import importlib.abc, sys
+    sys.modules["jax"] = None
+    sys.modules["jaxlib"] = None
+    sys.modules["msgpack"] = None
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name == "nomad_tpu" or name.startswith("nomad_tpu."):
+                raise ImportError("blocked: " + name)
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    sys.path.insert(0, {repo!r})
+""")
+
+_BLOCKED_DEVICE_RUN = _BLOCKER + textwrap.dedent("""
+    import torch
+
+    import chip_smoke
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.client.devicemanager import DeviceManager
+    from nomad_tpu_torch.jobspec import parse_job
+    from nomad_tpu_torch.plugins.cuda_device import CUDADevicePlugin
+    from nomad_tpu_torch.plugins.device import ExternalDevicePlugin
+    from nomad_tpu_torch.plugins.launch import plugin_env
+    from nomad_tpu_torch.plugins.transport import spawn_plugin
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.structs.structs import Evaluation, SchedulerConfiguration
+    from nomad_tpu_torch.utils import metrics
+
+    NAME = "NVIDIA H100 80GB HBM3"
+    real = (torch.cuda.is_available, torch.cuda.device_count, torch.cuda.get_device_name)
+
+    def card(on):
+        torch.cuda.is_available, torch.cuda.device_count, torch.cuda.get_device_name = (
+            (lambda: True, lambda: 1, lambda i=0: NAME) if on else real)
+
+    # the plugin subprocess runs with the same imports blocked
+    child = {child!r} + "import runpy; runpy.run_module('nomad_tpu_torch.plugins.launch', " \\
+        "run_name='__main__', alter_sys=True)"
+    ext = ExternalDevicePlugin("mock-device", spawn_plugin(
+        [sys.executable, "-c", child, "device", "nomad_tpu_torch.plugins.mock_device:plugin"],
+        env=plugin_env()))
+    ext.client.call("set_config", {{"vendor": "nvidia", "model": NAME, "count": 4}}, timeout=10)
+    remote = DeviceManager([ext], fingerprint_interval=0)
+    groups = remote.fingerprint()
+    assert [(g.vendor, g.type, g.name, len(g.instances)) for g in groups] == [
+        ("nvidia", "gpu", NAME, 4)], groups
+    from nomad_tpu_torch.structs.structs import AllocatedDeviceResource
+    env = remote.reserve([AllocatedDeviceResource(vendor="nvidia", type="gpu", name=NAME,
+                                                  device_ids=[NAME + "-3"])]).envs
+    assert env == {{"MOCK_VISIBLE_DEVICES": NAME + "-3"}}, env
+    remote.stop()
+
+    card(True)
+    nodes, managers = chip_smoke.gpu_fleet(mock, 8, 0, CUDADevicePlugin(), NAME)
+    card(False)
+    calls = []
+    orig = metrics.incr_counter
+    metrics.incr_counter = lambda n, v=1.0: (calls.append(n), orig(n, v))
+    h = Harness(device="cpu")
+    h.state.scheduler_set_config(h.next_index(), SchedulerConfiguration())
+    for n in nodes:
+        h.state.upsert_node(h.next_index(), n)
+    jobs = chip_smoke.gpu_jobs(NAME, {{"gpu1": (1, 6, 1, 0), "mixed": (1, 2, 1, 1)}})
+    placed = {{}}
+    for job_id, hcl in jobs:
+        job = parse_job(hcl)
+        h.state.upsert_job(h.next_index(), job)
+        n_plans = len(h.plans)
+        h.process(job.type, Evaluation(priority=job.priority, type=job.type,
+                  triggered_by="job-register", job_id=job.id, namespace=job.namespace))
+        placed[job_id] = [a for v in h.plans[n_plans].node_allocation.values() for a in v]
+    assert [len(placed[j]) for j, _ in jobs] == [8, 6, 2], placed
+    assert calls.count("nomad.tpu_engine.handled") == 3, calls
+    assert "nomad.tpu_engine.fallback" not in calls, calls
+    on_card = [a for a in placed["gpu-system"] if a.node_id == nodes[0].id]
+    devices = [d for t in on_card[0].allocated_resources.tasks.values() for d in t.devices]
+    card(True)
+    env = managers[0].reserve(devices).envs
+    card(False)
+    assert env == {{"CUDA_VISIBLE_DEVICES": "0"}}, env
+    fpga = {{n.id for n in nodes if any(d.type == "fpga" for d in n.node_resources.devices)}}
+    assert all(a.node_id in fpga for a in placed["mixed-0"])
+    assert sys.modules.get("msgpack") is None and sys.modules.get("jax") is None
+    assert not any(m == "nomad_tpu" or m.startswith("nomad_tpu.") for m in sys.modules)
+    print("DEVICES-ISOLATED-OK")
+""")
+
+
+def test_device_path_runs_with_jax_nomad_tpu_and_msgpack_blocked():
+    """The device path in a process where importing jax, anything of
+    nomad_tpu, or msgpack fails: a mock GPU plugin behind the subprocess
+    transport (its process blocked alike) fingerprints and reserves; the
+    fleet's nodes are fingerprinted by device managers (node 0 by the
+    cuda plugin, ``torch.cuda`` stood in for one card); a system GPU job,
+    a GPU job (D = 5) and a GPU + FPGA job (D = 6) parsed from HCL are
+    placed by the engine; node 0's card is reserved as
+    CUDA_VISIBLE_DEVICES=0."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    code = _BLOCKED_DEVICE_RUN.format(repo=str(REPO),
+                                      child=_BLOCKER.format(repo=str(REPO)))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=240, env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stdout + out.stderr[-4000:]
+    assert "DEVICES-ISOLATED-OK" in out.stdout
 
 
 def test_server_default_config_without_cuda_raises(monkeypatch):

@@ -380,6 +380,17 @@ def test_failed_launch_nacks_the_eval_and_places_nothing(deterministic, monkeypa
     def failing(static_b, carry_b, xs_b):
         raise RuntimeError("place_scan launch failed: injected")
 
+    # the fallbacks counted during this test: the global sink also holds
+    # what earlier tests in the same process counted
+    fallbacks = []
+    incr = metrics.incr_counter
+
+    def spy(name, value=1.0):
+        if name == "nomad.tpu_engine.dispatch_fallback_host":
+            fallbacks.append(value)
+        incr(name, value)
+
+    monkeypatch.setattr(metrics, "incr_counter", spy)
     monkeypatch.setattr(kernels, "place_scan_batched", failing)
     s = Server(ServerConfig(num_schedulers=1, deterministic=deterministic,
                             device_min_placements=0, device="cpu"))
@@ -392,7 +403,7 @@ def test_failed_launch_nacks_the_eval_and_places_nothing(deterministic, monkeypa
         s.register_job(job)
         wait_for(lambda: s.workers[0].stats["nacks"] >= 1, msg="eval nacked")
         assert s.fsm.state.allocs_by_job(job.namespace, job.id, True) == []
-        assert counter("nomad.tpu_engine.dispatch_fallback_host") == 0
+        assert fallbacks == []
     finally:
         s.stop()
 
