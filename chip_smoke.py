@@ -2,7 +2,8 @@
 """Drive the PyTorch port's main paths on one NVIDIA GPU and hold every
 kernel against its plain PyTorch version.
 
-    python3 chip_smoke.py [--seed N] [--churn-only | --wire-only | --devices-only]
+    python3 chip_smoke.py [--seed N] [--churn-only | --wire-only | --devices-only |
+                                      --client-only]
 
 Run from the root of a checkout on a machine with one CUDA card, nvcc
 and PyTorch built for CUDA. Phases, each of which fails the run:
@@ -143,11 +144,11 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    while this process's heap is small): (a) three of the port's Servers in this process (ServerConfig
    defaults, the float arm, 16 workers each), each on its own WireRaft
    over TCP with a durable native log and behind its own RPCServer; the
-   C1M fleet through ``raft_apply``, 20,000 placements of the job mix
-   (60,000 before the devices phase; cut to make room) through
-   ``Job.Register`` over the wire, then the leader's raft and RPC stop
-   (its Server stays up), a new leader is elected and 5,000 more (10,000
-   before) go through it. It fails unless both leaders launched K3,
+   C1M fleet through ``raft_apply``, 10,000 placements of the job mix
+   (60,000 before the devices phase and 20,000 before the client phase;
+   cut to make room) through ``Job.Register`` over the wire, then the
+   leader's raft and RPC stop (its Server stays up), a new leader is
+   elected and 2,500 more (10,000, then 5,000 before) go through it. It fails unless both leaders launched K3,
    every captured launch equals its plain version (within the float
    bound), the survivors' FSMs hold the same allocs, no node is
    overcommitted and the invariant sweep reads zero; it prints the
@@ -174,8 +175,8 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    parsed from HCL by the port's jobspec: ``Job.Plan`` with its diff of
    the first GPU job before it is registered (float arm, as the
    reference's plan); a system job asking one GPU on every node (K4,
-   D = 5); 8 service jobs of 500 asking one GPU and 2 of 250 asking two
-   (K3, D = 5); then, alone, a job of 125 asking a GPU and an FPGA
+   D = 5); 8 service jobs of 250 asking one GPU and 2 of 125 asking two
+   (K3, D = 5; 500 and 250 before the client phase); then, alone, a job of 125 asking a GPU and an FPGA
    (D = 6); ``Job.Plan`` of the first job at 100 more. It fails unless
    every job is fully placed, no instance is assigned twice or past what
    its node holds, no node is overcommitted, the D = 6 job lands on FPGA
@@ -190,6 +191,28 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    retry of its eval), Job.Plan's ms, and whether the plugin's
    process (and a process that only fingerprints) holds a CUDA context.
    ``--devices-only`` builds the kernels and runs only this phase (no
+   kernels line, no result).
+
+16. the client phase (after the devices phase): the client runtime. The
+   port's in-process Server (int arm, every
+   eval on the device path) over N_NODES C1M-shaped nodes, CLIENTS of
+   them the port's ``Client``s (node class ``runner``; client 0 with the
+   cuda device plugin, client 1 with its SQLite state DB), runs jobs
+   parsed from HCL and limited to the runners: a raw_exec system job
+   (K4) on every runner; C1M's density, CLIENT_ALLOCS raw_exec batch
+   allocs a client (K3; each task writes its alloc index, its stdout
+   through a logmon process); an exec service job through the port's
+   nomad-executor, run and stopped; a GPU task (exec, this interpreter)
+   that computes on the card the server assigned it and reports what it
+   saw; the system job stopped. Every alloc reaches its status within
+   CLIENT_PHASE_S, none lands off the runners or overcommits a node, the
+   GPU task saw exactly the assigned card (UUID), every K3 and K4 launch
+   equals its plain version, and no task, executor or logmon process is
+   left. It prints job 2's placements/s and seconds to its last
+   complete, allocs complete/s, job 3's register-to-running p50/p99, the
+   launches with their kernel ms, the peak live task and logmon
+   processes, and whether the GPU task held a CUDA context.
+   ``--client-only`` builds the kernels and runs only this phase (no
    kernels line, no result).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
@@ -2210,10 +2233,11 @@ def log_churn(rec, card):
 # of up to 512 such entries; the reference's defaults are 0.5-1.0 s and
 # 1.0 s, sized for one server a process
 #: the wire cluster's placements before and after its failover (60,000
-#: and 10,000 before the devices phase; cut to make room for it:
-#: every captured launch is held against the plain float step)
-WIRE_PLACEMENTS = 20_000
-WIRE_FAILOVER_PLACEMENTS = 5_000
+#: and 10,000 before the devices phase, 20,000 and 5,000 before the client
+#: phase; cut to make room for them: every captured launch is held
+#: against the plain float step, 104.5 s of the phase's 170.8 s at 20,000)
+WIRE_PLACEMENTS = 10_000
+WIRE_FAILOVER_PLACEMENTS = 2_500
 WIRE_RAFT = dict(election_timeout_min=2.0, election_timeout_max=4.0, heartbeat_interval=0.1,
                  rpc_timeout=30.0, apply_timeout=120.0)
 # bench.py's chaos-crash-5K (bench.py:1263-1356) and serve-100Kwatch
@@ -2521,13 +2545,14 @@ def log_wire(rec, card):
 
 
 class _ContextWatch:
-    """Samples ``nvidia-smi --query-compute-apps`` every 2 s while a
-    real-process phase runs: the pids that hold a CUDA context, so the
+    """Samples ``nvidia-smi --query-compute-apps`` every ``interval`` s
+    while a real-process phase runs: the pids that hold a CUDA context, so the
     phase can say whether its server processes touched the card."""
 
-    def __init__(self):
+    def __init__(self, interval: float = 2.0):
         import threading
 
+        self.interval = interval
         self.pids, self._stop = set(), threading.Event()
         self._thread = threading.Thread(target=self._run, name="context-watch", daemon=True)
 
@@ -2540,7 +2565,7 @@ class _ContextWatch:
                 self.pids |= {int(x) for x in out.stdout.split() if x.strip().isdigit()}
             except (OSError, subprocess.SubprocessError, ValueError):
                 pass
-            if self._stop.wait(2.0):
+            if self._stop.wait(self.interval):
                 return
 
     def __enter__(self):
@@ -2780,10 +2805,11 @@ def log_serve(rec, card):
 GPU_INSTANCES, FPGA_INSTANCES, FPGA_EVERY = 8, 2, 4
 FPGA_NAME = "alveo-u250"
 #: the phase's service jobs: kind -> (jobs, count, GPUs a task, FPGAs a task);
-#: counts a quarter of 2,000 / 1,000 / 500 to fit the time limit (a
-#: partial commit re-runs a device job's eval, and every launch is held
-#: against the plain step, ~2.8 ms a step on an H100)
-GPU_JOBS = {"gpu1": (8, 500, 1, 0), "gpu2": (2, 250, 2, 0), "mixed": (1, 125, 1, 1)}
+#: counts an eighth of 2,000 / 1,000 and a quarter of 500 to fit the time
+#: limit (a quarter of all three before the client phase; a partial
+#: commit re-runs a device job's eval, and every launch is held against
+#: the plain step, ~2.8-4.8 ms a step on an H100)
+GPU_JOBS = {"gpu1": (8, 250, 1, 0), "gpu2": (2, 125, 2, 0), "mixed": (1, 125, 1, 1)}
 
 
 def gpu_fleet(mock, n_nodes: int, seed: int, card_plugin, gpu_name: str):
@@ -3172,6 +3198,503 @@ def log_devices(rec, card):
         f"snapshot: {rec['host_diverged']} placements differ (host {rec['host_ms']:.1f} ms)")
 
 
+#: the client phase: real clients among the fleet, and job 2's allocs on each
+CLIENTS = 4
+CLIENT_ALLOCS = 200
+#: the svc-exec service job's count
+CLIENT_SVC_COUNT = 40
+#: the client phase's own time limit, holds included
+CLIENT_PHASE_S = 120.0
+#: seconds the GPU task holds its CUDA context after it writes its
+#: result, so that the phase's context watch sees its pid
+GPU_TASK_HOLD_S = 3.0
+
+#: the GPU task: a fixed integer computation on the card it was given, and
+#: what it saw, into $NOMAD_TASK_DIR/gpu.json
+GPU_TASK_SCRIPT = """
+import ctypes, json, os, time
+import torch
+n = 1 << 20
+total = int(torch.arange(n, device="cuda", dtype=torch.int64).sum().item())
+props = torch.cuda.get_device_properties(0)
+cuda = ctypes.CDLL("libcuda.so.1")
+dev, flags, active = ctypes.c_int(), ctypes.c_uint(), ctypes.c_int()
+rc = [cuda.cuDeviceGet(ctypes.byref(dev), 0),
+      cuda.cuDevicePrimaryCtxGetState(dev, ctypes.byref(flags), ctypes.byref(active))]
+out = {"CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES"),
+       "device_count": torch.cuda.device_count(), "name": props.name,
+       "uuid": str(getattr(props, "uuid", "")), "sum": total, "expected": n * (n - 1) // 2,
+       "pid": os.getpid(), "primary_context": bool(active.value), "driver_rc": rc}
+path = os.path.join(os.environ["NOMAD_TASK_DIR"], "gpu.json")
+with open(path + ".tmp", "w") as f:
+    json.dump(out, f)
+os.replace(path + ".tmp", path)
+time.sleep(float(os.environ.get("GPU_TASK_HOLD_S", "0")))
+"""
+
+
+def client_job_hcl(job_id: str, kind: str, driver: str, command: str, args, count=None,
+                   cpu: int = 20, memory: int = 10, extra_task: str = "",
+                   extra_group: str = "", extra_resources: str = "") -> str:
+    """A jobspec of the client phase: one task limited to runner nodes,
+    failing fast (no restart, no reschedule) where a task may fail."""
+    count_line = "" if count is None else f"count = {count}"
+    policy = ("" if kind == "system" else
+              'restart {\n      attempts = 0\n      mode = "fail"\n    }\n'
+              '    reschedule {\n      attempts = 0\n      unlimited = false\n    }')
+    return f"""job "{job_id}" {{
+  datacenters = ["dc1"]
+  type        = "{kind}"
+  constraint {{
+    attribute = "${{node.class}}"
+    value     = "runner"
+  }}
+  group "run" {{
+    {count_line}
+    {policy}
+    {extra_group}
+    task "main" {{
+      driver = "{driver}"
+      config {{
+        command = {json.dumps(command)}
+        args    = {json.dumps(list(args))}
+      }}
+      {extra_task}
+      resources {{
+        cpu    = {cpu}
+        memory = {memory}
+        {extra_resources}
+      }}
+    }}
+  }}
+}}
+"""
+
+
+def _hcl_env(env) -> str:
+    """A task's ``env`` block for these variables ("" for none)."""
+    if not env:
+        return ""
+    return "env {\n        " + "\n        ".join(
+        f"{k} = {json.dumps(v)}" for k, v in sorted(env.items())) + "\n      }"
+
+
+def client_jobs(gpu_name: str, python: str, env=None):
+    """The client phase's jobspecs: (job id, HCL) for the system job, the
+    C1M density batch job (spread over the runners, each task writing its
+    alloc index), the exec service job and the GPU task. ``env`` goes to
+    the exec tasks, which get no variable of the client's own."""
+    spread = 'spread {\n      attribute = "${node.unique.id}"\n    }'
+    gpu_device = f'device "nvidia/gpu/{gpu_name}" {{\n          count = 1\n        }}'
+    return [
+        ("node-agent", client_job_hcl("node-agent", "system", "raw_exec", "/bin/sleep",
+                                      ["3600"])),
+        ("c1m-density", client_job_hcl(
+            "c1m-density", "batch", "raw_exec", "/bin/sh",
+            ["-c", "echo $NOMAD_ALLOC_INDEX > $NOMAD_TASK_DIR/index; echo $NOMAD_ALLOC_INDEX"],
+            count=CLIENTS * CLIENT_ALLOCS, extra_group=spread)),
+        ("svc-exec", client_job_hcl("svc-exec", "service", "exec", "/bin/sleep", ["3600"],
+                                    count=CLIENT_SVC_COUNT, cpu=10, memory=10,
+                                    extra_task=_hcl_env(env))),
+        ("gpu-task", client_job_hcl("gpu-task", "batch", "exec", python,
+                                    ["-c", GPU_TASK_SCRIPT], count=1, cpu=100, memory=256,
+                                    extra_task=_hcl_env(dict(
+                                        env or {}, GPU_TASK_HOLD_S=str(GPU_TASK_HOLD_S))),
+                                    extra_resources=gpu_device)),
+    ]
+
+
+class _ProcWatch:
+    """Samples this process's descendants every ``interval`` s: the pids
+    of task, executor and logmon processes seen, and the peak number
+    alive at once of tasks and of logmons."""
+
+    def __init__(self, interval: float = 0.2):
+        import os
+        import threading
+
+        self.root, self.interval = os.getpid(), interval
+        self.seen = {"task": set(), "executor": set(), "logmon": set()}
+        self.peak = {"task": 0, "executor": 0, "logmon": 0}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="proc-watch", daemon=True)
+
+    @staticmethod
+    def _stat(pid: int):
+        """(parent pid, state) of a pid, or None once it is gone."""
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                rest = f.read().rsplit(")", 1)[1].split()
+            return int(rest[1]), rest[0]
+        except (OSError, IndexError, ValueError):
+            return None
+
+    @staticmethod
+    def _kind(pid: int):
+        """executor, logmon or task; None for the phase's own helpers
+        (``_ContextWatch``'s nvidia-smi)."""
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+        except OSError:
+            return None
+        if argv[0].endswith(b"nvidia-smi"):
+            return None
+        if argv[0].endswith(b"nomad-executor"):
+            return "executor"
+        if any(a.endswith(b"logmon.py") for a in argv[:4]):
+            return "logmon"
+        return "task"
+
+    def sample(self) -> None:
+        import os
+
+        parents = {}
+        for name in os.listdir("/proc"):
+            if name.isdigit():
+                st = self._stat(int(name))
+                if st is not None and st[1] != "Z":
+                    parents[int(name)] = st[0]
+        kids, frontier = set(), {self.root}
+        while frontier:
+            frontier = {p for p, pp in parents.items() if pp in frontier and p not in kids}
+            kids |= frontier
+        alive = {"task": 0, "executor": 0, "logmon": 0}
+        for pid in kids:
+            kind = self._kind(pid)
+            if kind is not None:
+                self.seen[kind].add(pid)
+                alive[kind] += 1
+        for kind, n in alive.items():
+            self.peak[kind] = max(self.peak[kind], n)
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.sample()
+            self._stop.wait(self.interval)
+
+    def alive(self) -> dict:
+        """The pids seen that are still alive (not gone, not a zombie)."""
+        out = {}
+        for kind, pids in self.seen.items():
+            live = []
+            for pid in pids:
+                st = self._stat(pid)
+                if st is not None and st[1] != "Z":
+                    live.append(pid)
+            out[kind] = sorted(live)
+        return out
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+        return False
+
+
+def _live_allocs(state, job_id):
+    """A job's allocs, read under the store's lock (the FSM writes while
+    the phase polls)."""
+    return state.read_with_index(lambda s: s.allocs_by_job("default", job_id, True))[0]
+
+
+def phase_client(kernels, step, forced, parity, seed: int):
+    """The client runtime on the card: the port's in-process Server (int
+    arm, SERVER_WORKERS workers, every eval on the device path) over
+    N_NODES C1M-shaped nodes, CLIENTS of them the port's real ``Client``s
+    (node class ``runner``, fingerprinted by ``fingerprint_node``; client
+    0 runs the cuda device plugin, client 1 a SQLite state DB) over
+    ``ServerProxy``, the rest registered through raft. Every job parsed
+    from HCL (``client_jobs``) and limited to the runners: a system job
+    (raw_exec, K4) on all four; C1M's density, CLIENT_ALLOCS raw_exec
+    batch allocs a client, each writing its alloc index, its stdout
+    through a logmon process; an exec service job through the native
+    executor, run and then stopped; a GPU task (exec, this interpreter by
+    absolute path) on the card the server assigned; the system job
+    stopped. Holds every captured K3 and K4 launch against its plain
+    version, and checks that no task, executor or logmon process is left.
+    Returns (record, spy)."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.client import Client, ClientConfig, ServerProxy
+    from nomad_tpu_torch.client.logmon import read_logs
+    from nomad_tpu_torch.jobspec import parse_job
+    from nomad_tpu_torch.server.fsm import NODE_REGISTER
+    from nomad_tpu_torch.server.server import Server, ServerConfig
+    from nomad_tpu_torch.structs import structs
+    from nomad_tpu_torch.structs.funcs import allocs_fit
+
+    t_phase = time.perf_counter()
+    deadline = time.monotonic() + CLIENT_PHASE_S
+    gpu_name = torch.cuda.get_device_name(0)
+    rec = {"gpu_name": gpu_name}
+    root = tempfile.mkdtemp(prefix="smoke-clients-")
+    server, clients = None, []
+
+    def wait(cond, what):
+        while not cond():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"client: {what} not reached within the phase's "
+                                     f"{CLIENT_PHASE_S:.0f} s")
+            time.sleep(0.02)
+
+    try:
+        with _ProcWatch() as procs, _ContextWatch(interval=0.5) as contexts:
+            server = Server(ServerConfig(num_schedulers=SERVER_WORKERS, deterministic=True,
+                                         device=DEVICE, device_min_placements=0),
+                            name="smoke-client")
+            server.start()
+            fleet = c1m_nodes(mock, seed)[:N_NODES - CLIENTS]
+            for n in fleet:
+                server.raft_apply(NODE_REGISTER, n)
+            for i in range(CLIENTS):
+                cfg = ClientConfig(state_dir=os.path.join(root, f"client-{i}"),
+                                   node_class="runner", persist_state=(i == 1),
+                                   gc_interval=3600.0, gc_max_allocs=10 * CLIENT_ALLOCS,
+                                   device_plugins={"cuda": {}} if i == 0 else {})
+                c = Client(ServerProxy(server), cfg)
+                c.node.name = f"runner-{i}"
+                clients.append(c)
+                c.start()
+            state = server.fsm.state
+            wait(lambda: all(state.node_by_id(c.node.id) is not None for c in clients),
+                 "the clients' registration")
+            rec["nodes"] = state.read_with_index(lambda s: len(s.nodes()))[0]
+            if rec["nodes"] != N_NODES:
+                raise AssertionError(f"client: {rec['nodes']} nodes registered, not {N_NODES}")
+            runner_ids = {c.node.id: i for i, c in enumerate(clients)}
+            card_node = state.node_by_id(clients[0].node.id)
+            got = [(d.vendor, d.type, d.name) for d in card_node.node_resources.devices]
+            if got != [("nvidia", "gpu", gpu_name)]:
+                raise AssertionError(f"client: client 0's node advertises {got}")
+            for c in clients:
+                bad = [d for d in ("raw_exec", "exec") if not c.node.drivers[d].healthy]
+                if bad:
+                    raise AssertionError(f"client: {c.node.name}'s drivers {bad} unhealthy")
+
+            env = {k: os.environ[k] for k in ("LD_LIBRARY_PATH",) if os.environ.get(k)}
+            specs = dict(client_jobs(gpu_name, sys.executable, env))
+            jobs = {k: parse_job(v) for k, v in specs.items()}
+            with _Spy(kernels) as spy:
+                # 1. the system job: one alloc a runner, through K4
+                t0 = time.perf_counter()
+                server.register_job(jobs["node-agent"])
+                wait(lambda: sorted(a.client_status for a in _live_allocs(state, "node-agent"))
+                     == ["running"] * CLIENTS, "node-agent running on every runner")
+                rec["system_s"] = time.perf_counter() - t0
+
+                # 2. C1M's density: CLIENT_ALLOCS batch allocs a client
+                want = CLIENTS * CLIENT_ALLOCS
+                done_at = {}
+
+                def density_done():
+                    now = time.perf_counter()
+                    allocs = _live_allocs(state, "c1m-density")
+                    for a in allocs:
+                        if a.client_status == structs.ALLOC_CLIENT_COMPLETE:
+                            done_at.setdefault(a.id, now)
+                    bad = [a.name for a in allocs if a.client_status == "failed"]
+                    if bad:
+                        raise AssertionError(f"client: c1m-density allocs failed: {bad[:3]}")
+                    return len(done_at) == want
+
+                t0 = time.perf_counter()
+                server.register_job(jobs["c1m-density"])
+                wait(lambda: len(_live_allocs(state, "c1m-density")) == want,
+                     "c1m-density placed")
+                rec["density_place_s"] = time.perf_counter() - t0
+                wait(density_done, "c1m-density complete")
+                t_done = time.perf_counter()
+                rec["density_s"] = t_done - t0
+                rec["density_placements_per_s"] = want / rec["density_place_s"]
+                first = min(done_at.values())
+                rec["allocs_complete_per_s"] = want / max(t_done - first, 1e-9)
+
+                # 3. the exec service job: running, then stopped
+                t_reg = time.time_ns()
+                server.register_job(jobs["svc-exec"])
+                wait(lambda: [a.client_status for a in _live_allocs(state, "svc-exec")]
+                     == ["running"] * CLIENT_SVC_COUNT, "svc-exec running")
+                starts = sorted((min(ts.started_at_ns for ts in a.task_states.values())
+                                 - t_reg) / 1e6 for a in _live_allocs(state, "svc-exec"))
+                pct = _percentiles(starts)
+                rec["svc_p50_ms"], rec["svc_p99_ms"] = pct["p50"], pct["p99"]
+                exec_pids = []
+                for c in clients:
+                    for ar in list(c.allocrunners.values()):
+                        if ar.alloc.job_id == "svc-exec":
+                            for tr in ar.task_runners.values():
+                                ds = tr.handle.driver_state
+                                exec_pids.append(ds["pid"])
+                                with open(ds["pid_file"]) as f:
+                                    exec_pids.append(int(f.read().strip()))
+                server.deregister_job("default", "svc-exec")
+                wait(lambda: all(a.client_status == structs.ALLOC_CLIENT_COMPLETE
+                                 for a in _live_allocs(state, "svc-exec")), "svc-exec stopped")
+                wait(lambda: not [p for p in exec_pids if _ProcWatch._stat(p) is not None
+                                  and _ProcWatch._stat(p)[1] != "Z"],
+                     "svc-exec's executors and tasks gone")
+                rec["svc_pids"] = len(exec_pids)
+
+                # 4. the GPU task, on the card the server assigned
+                server.register_job(jobs["gpu-task"])
+                wait(lambda: [a.client_status for a in _live_allocs(state, "gpu-task")]
+                     == ["complete"], "gpu-task complete")
+                (gpu_alloc,) = _live_allocs(state, "gpu-task")
+
+                # 5. the system job stopped
+                server.deregister_job("default", "node-agent")
+                wait(lambda: all(a.client_status == structs.ALLOC_CLIENT_COMPLETE
+                                 for a in _live_allocs(state, "node-agent")),
+                     "node-agent stopped")
+                if not server.drain_evals(max(deadline - time.monotonic(), 1.0)):
+                    raise AssertionError("client: the broker did not drain")
+            launches, counted = spy.launches, spy.counted
+            rec["launches"] = launches
+            rec["k3_launches"] = len(spy.batched)
+            rec["k4_launches"] = len(spy.forced)
+            stats = dict(server.device_batcher.stats)
+            rec["evals_per_launch"] = stats["evals"] / max(stats["dispatches"], 1)
+            unported = counted.count("nomad.tpu_engine.unported")
+            fallback = counted.count("nomad.tpu_engine.fallback")
+            host_small = counted.count("nomad.tpu_engine.small_eval_host")
+            if unported or fallback or host_small or not rec["k3_launches"] \
+                    or not rec["k4_launches"]:
+                raise AssertionError(f"client: unported={unported} fallback={fallback} "
+                                     f"host_small={host_small} launches={launches} "
+                                     f"reasons {fallback_reasons(spy.reasons)}")
+
+            # placements: runners only, 200 a client, none overcommitted
+            by_node = {}
+            for job_id in specs:
+                for a in _live_allocs(state, job_id):
+                    if a.node_id not in runner_ids:
+                        raise AssertionError(f"client: {a.name} placed on {a.node_name}, "
+                                             f"not a runner")
+                    by_node.setdefault(a.node_id, []).append(a)
+            nodes = state.read_with_index(lambda s: list(s.nodes()))[0]
+            over = [n.name for n in nodes if not allocs_fit(n, by_node.get(n.id, []))[0]]
+            if over:
+                raise AssertionError(f"client: nodes overcommitted: {over[:3]}")
+            density = [sum(a.job_id == "c1m-density" for a in by_node.get(c.node.id, []))
+                       for c in clients]
+            rec["density_per_client"] = density
+            if density != [CLIENT_ALLOCS] * CLIENTS:
+                raise AssertionError(f"client: c1m-density allocs per client {density}")
+
+            # job 2's files: each its alloc's index, its stdout in logmon's file
+            bad = []
+            for a in _live_allocs(state, "c1m-density"):
+                c = clients[runner_ids[a.node_id]]
+                task_dir = os.path.join(c.alloc_dir_base, a.id, "main")
+                with open(os.path.join(task_dir, "local", "index")) as f:
+                    if f.read().strip() != str(a.index()):
+                        bad.append(a.name)
+                log_dir = os.path.join(c.alloc_dir_base, a.id, "alloc", "logs")
+                out, _ = read_logs(log_dir, "main", "stdout")
+                if out.decode().strip() != str(a.index()) or \
+                        not os.path.exists(os.path.join(log_dir, "main.stdout.0")):
+                    bad.append(a.name + " (log)")
+            if bad:
+                raise AssertionError(f"client: {len(bad)} of job 2's files wrong: {bad[:3]}")
+
+            # the GPU task: one device, the card the server assigned
+            (dev,) = [d for t in gpu_alloc.allocated_resources.tasks.values() for d in t.devices]
+            (ordinal,) = dev.device_ids
+            visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+            entry = visible.split(",")[int(ordinal)].strip() if visible else ordinal
+            want_uuid = str(torch.cuda.get_device_properties(int(ordinal)).uuid)
+            c0 = clients[runner_ids[gpu_alloc.node_id]]
+            with open(os.path.join(c0.alloc_dir_base, gpu_alloc.id, "main", "local",
+                                   "gpu.json")) as f:
+                gpu = json.load(f)
+            rec["gpu"] = dict(gpu, assigned=ordinal, want_uuid=want_uuid,
+                              held_context_smi=gpu["pid"] in contexts.pids,
+                              smi_pids=len(contexts.pids),
+                              smi_sees_self=os.getpid() in contexts.pids)
+            if (gpu["device_count"] != 1 or gpu["CUDA_VISIBLE_DEVICES"] != entry
+                    or gpu["uuid"] != want_uuid or gpu["sum"] != gpu["expected"]
+                    or gpu["name"] != gpu_name or not gpu["primary_context"]):
+                raise AssertionError(f"client: the GPU task saw {gpu}; the server assigned "
+                                     f"ordinal {ordinal} ({entry}, uuid {want_uuid})")
+
+            # every captured launch against its plain version (int arm)
+            rec["holds"] = []
+            for i, launch in enumerate(spy.batched):
+                fresh, after, out, out_layout = launch
+                if fresh.parts()[0][0].dtype == torch.float32:
+                    raise AssertionError(f"client: K3 launch {i} ran the float arm")
+                ran = ~packed_scan_results(after, out, out_layout)[1][3]
+                rec["holds"].append((fresh.dims["D"], False, int(ran.any(dim=1).sum()),
+                                     int(ran.sum()), *replay_batched(
+                                         kernels, step, parity, launch, f"client K3 launch {i}",
+                                         False)))
+            rec["k4"] = [replay_forced(kernels, forced, launch, f"client K4 launch {i}")
+                         for i, launch in enumerate(spy.forced)]
+
+            for c in clients:
+                c.shutdown()
+            procs.sample()
+            rec["peak"] = dict(procs.peak)
+            rec["seen"] = {k: len(v) for k, v in procs.seen.items()}
+            wait(lambda: not any(procs.alive().values()), "every task, executor and logmon gone")
+            rec["phase_s"] = time.perf_counter() - t_phase
+            if rec["phase_s"] > CLIENT_PHASE_S:
+                raise AssertionError(f"client: the phase took {rec['phase_s']:.1f} s")
+        return rec, spy
+    finally:
+        for c in clients:
+            c.shutdown()
+        if server is not None:
+            server.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def log_client(rec, card):
+    """The client phase's lines."""
+    gpu = rec["gpu"]
+    log(f"client: {rec['nodes']} nodes, {CLIENTS} of them the port's Clients; system job "
+        f"running on every runner in {rec['system_s']:.3f} s; c1m-density: "
+        f"{CLIENTS * CLIENT_ALLOCS} raw_exec allocs ({rec['density_per_client']} a client) "
+        f"placed in {rec['density_place_s']:.3f} s ({rec['density_placements_per_s']:.1f} "
+        f"placements/s), registration to the last complete {rec['density_s']:.3f} s, "
+        f"{rec['allocs_complete_per_s']:.1f} allocs complete/s, every index file and logmon "
+        f"stdout file right; on {card}; phase wall {rec['phase_s']:.1f} s")
+    log(f"  svc-exec: {CLIENT_SVC_COUNT} exec allocs, register to running p50 "
+        f"{rec['svc_p50_ms']:.1f} ms p99 {rec['svc_p99_ms']:.1f} ms; stopped, its "
+        f"{rec['svc_pids']} executor and task pids gone")
+    log(f"  processes: peak live tasks {rec['peak']['task']}, executors "
+        f"{rec['peak']['executor']}, logmons {rec['peak']['logmon']} (seen "
+        f"{json.dumps(rec['seen'], sort_keys=True)}); none left at the end")
+    log(f"  gpu-task: assigned ordinal {gpu['assigned']} (uuid {gpu['want_uuid']}); the task "
+        f"saw CUDA_VISIBLE_DEVICES={gpu['CUDA_VISIBLE_DEVICES']}, {gpu['device_count']} "
+        f"device, {gpu['name']} uuid {gpu['uuid']}, sum {gpu['sum']} (right); its pid "
+        f"{gpu['pid']} held a CUDA context: primary context active in the task "
+        f"{gpu['primary_context']}, in nvidia-smi's compute apps "
+        f"{'yes' if gpu['held_context_smi'] else 'no'} (nvidia-smi listed {gpu['smi_pids']} "
+        f"pids in the phase, this process among them: {'yes' if gpu['smi_sees_self'] else 'no'})")
+    log(f"  launches {json.dumps(rec['launches'], sort_keys=True)}: K3 {rec['k3_launches']} "
+        f"(mean {rec['evals_per_launch']:.3f} evals a launch), K4 {rec['k4_launches']}")
+    for d in sorted({h[0] for h in rec["holds"]}):
+        rows = [h for h in rec["holds"] if h[0] == d]
+        log(f"  K3 D={d} int: {len(rows)} launches, {sum(h[2] for h in rows)} evals, "
+            f"{sum(h[3] for h in rows)} steps; kernel ms "
+            f"{' '.join(f'{h[4]:.3f}' for h in rows)}; plain ms {sum(h[5] for h in rows):.1f} "
+            f"in all; bound ms {' '.join(f'{h[6]:.6f}' for h in rows)} ({rows[0][7]}); all "
+            f"equal to plain")
+    for i, k in enumerate(rec["k4"]):
+        log(f"  K4 launch {i}: kernel_ms={k[0]:.4f} plain_ms={k[1]:.2f} bound_ms={k[2]:.6f}")
+
+
 def memory_line() -> str:
     """This process's resident set and the host's available memory."""
     def field(path, key):
@@ -3228,6 +3751,9 @@ def main() -> int:
     ap.add_argument("--devices-only", action="store_true",
                     help="build the kernels and run the devices phase only (prints no kernels "
                          "line and no result)")
+    ap.add_argument("--client-only", action="store_true",
+                    help="build the kernels and run the client phase only (prints no kernels "
+                         "line and no result)")
     args = ap.parse_args()
 
     if not (REPO / "nomad_tpu_torch" / "tpu" / "csrc").is_dir():
@@ -3279,6 +3805,11 @@ def main() -> int:
     if args.devices_only:
         dev_rec, _spy = phase_devices(kernels, step, forced, parity, args.seed)
         log_devices(dev_rec, card)
+        log(f"card: {card}")
+        return 0
+    if args.client_only:
+        client_rec, _spy = phase_client(kernels, step, forced, parity, args.seed)
+        log_client(client_rec, card)
         log(f"card: {card}")
         return 0
     churn = churn_phases()
@@ -3391,6 +3922,12 @@ def main() -> int:
     dev_rec, _dev_spy = phase_devices(kernels, step, forced, parity, args.seed)
     log_devices(dev_rec, card)
     stamp("devices done")
+    del _dev_spy
+    release_heap()
+    client_rec, _client_spy = phase_client(kernels, step, forced, parity, args.seed)
+    log_client(client_rec, card)
+    del _client_spy
+    stamp(f"client done; {memory_line()}")
 
     # the main paths' own kernel inputs, replayed: kernel vs plain, times, bound
     rows = {name: [] for name in ("place_scan", "place_scan_f32", "place_scan_has_pre",
@@ -3460,6 +3997,11 @@ def main() -> int:
         else:
             worst = max(worst, h[8])
     rows["forced_eval"] += [k[:4] for k in dev_rec["k4"]]
+    # the client phase's launches (int arm), each held against plain in the phase
+    for h in client_rec["holds"]:
+        rows["place_scan"].append(h[4:8])
+        worst = max(worst, h[8])
+    rows["forced_eval"] += [k[:4] for k in client_rec["k4"]]
     stamp("replays done")
 
     mean = lambda v: sum(v) / len(v)  # noqa: E731
@@ -3469,14 +4011,16 @@ def main() -> int:
                        + sys_rec["launches"]["place_scan"]
                        - sys_rec["launches"]["place_scan_has_pre"]
                        + churn_i["place_scan"] - churn_i["place_scan_has_pre"]
-                       + dev_rec["launches"]["place_scan"]),
+                       + dev_rec["launches"]["place_scan"]
+                       + client_rec["launches"]["place_scan"]),
         "place_scan_f32": (servers["float"][0]["launches"]["place_scan_f32"]
                            + churn_f["place_scan_f32"]
                            + wire["launches_total"]["place_scan_f32"]
                            + dev_rec["launches"]["place_scan_f32"]),
         "place_scan_has_pre": (sys_rec["launches"]["place_scan_has_pre"]
                                + churn_i["place_scan_has_pre"]),
-        "forced_eval": sys_rec["launches"]["forced_eval"] + dev_rec["launches"]["forced_eval"],
+        "forced_eval": (sys_rec["launches"]["forced_eval"] + dev_rec["launches"]["forced_eval"]
+                        + client_rec["launches"]["forced_eval"]),
         "forced_eval_f32": servers["float"][0]["launches"]["forced_eval_f32"],
         "chunk_scan": servers["chunked"][0]["launches"]["chunk_scan"],
     }

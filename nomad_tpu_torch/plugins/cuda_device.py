@@ -8,6 +8,14 @@ devices through ``torch.cuda``, exposes them as schedulable device groups
 per ordinal), and reserves instances by exporting ``CUDA_VISIBLE_DEVICES``
 so the task's CUDA runtime binds only its assigned cards.
 
+An instance's id is its ordinal within this process's own visible set.
+When the plugin's process was started under ``CUDA_VISIBLE_DEVICES``
+(an index or a ``GPU-``/``MIG-`` UUID per card), the reservation exports
+that entry of the set, not the ordinal: a task inherits the client's
+environment with the reservation laid over it, so exporting ordinal 0
+of a host started with ``CUDA_VISIBLE_DEVICES=3`` would hand the task
+physical card 0, a card the server never assigned.
+
 The port of ``nomad_tpu/plugins/tpu_device.py``, which fingerprints with
 ``jax.devices()``, falls back to JAX's CPU devices and reserves with
 ``TPU_VISIBLE_CHIPS``. This plugin reports no device group when
@@ -21,6 +29,7 @@ fingerprints holds no CUDA context where ``torch.cuda`` allows that.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import List
 
@@ -70,8 +79,12 @@ class CUDADevicePlugin(DevicePlugin):
         for did in device_ids:
             if did not in known:
                 raise ValueError(f"unknown CUDA device {did!r}")
-        ordinals = ",".join(sorted(device_ids, key=lambda x: int(x) if x.isdigit() else 0))
-        return ContainerReservation(envs={"CUDA_VISIBLE_DEVICES": ordinals})
+        ordinals = sorted(device_ids, key=lambda x: int(x) if x.isdigit() else 0)
+        visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        if visible is not None:
+            entries = [e.strip() for e in visible.split(",")]
+            ordinals = [entries[int(o)] for o in ordinals]
+        return ContainerReservation(envs={"CUDA_VISIBLE_DEVICES": ",".join(ordinals)})
 
     def stats(self) -> DeviceStats:
         return DeviceStats(

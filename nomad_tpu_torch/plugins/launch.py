@@ -1,17 +1,15 @@
 """Plugin subprocess entrypoint.
 
-``python -m nomad_tpu_torch.plugins.launch device <module>:<attr>`` serves
-a device plugin factory. External plugin executables are free to call
+``python -m nomad_tpu_torch.plugins.launch driver <name>`` serves a
+built-in driver out-of-process; ``... device <module>:<attr>`` serves a
+device plugin factory. External plugin executables are free to call
 ``transport.serve_main`` themselves — this module is the built-in shim
 (the role of the reference's plugin main() + go-plugin Serve).
 
-Copied in part from ``nomad_tpu/plugins/launch.py`` into the PyTorch port,
-which imports nothing of ``nomad_tpu``: the device half. The ``driver``
-kind needs the client's drivers, which the port has not copied yet
-(ROADMAP Queue 1, the client runtime); until then it fails as an unknown
-kind does, and says so. ``plugin_env``, the subprocess environment, lives
-here until the plugin catalog (the reference's ``catalog._plugin_env``)
-is ported.
+Copied from ``nomad_tpu/plugins/launch.py`` into the PyTorch port, which
+imports nothing of ``nomad_tpu``. Changes: ``plugin_env``, the
+subprocess environment (the reference's ``catalog._plugin_env``), lives
+here, where the device plugins' callers and the catalog both import it.
 """
 from __future__ import annotations
 
@@ -30,10 +28,16 @@ def plugin_env() -> dict:
 
 def main(argv) -> int:
     if len(argv) < 2:
-        print("usage: launch device <module>:<attr>", file=sys.stderr)
+        print("usage: launch driver <name> | device <module>:<attr>", file=sys.stderr)
         return 2
     kind, target = argv[0], argv[1]
-    if kind == "device":
+    if kind == "driver":
+        from ..client.drivers import new_driver  # package import registers built-ins
+        from .driver_plugin import DriverPluginShim
+        from .transport import serve_main
+
+        serve_main(DriverPluginShim(new_driver(target)))
+    elif kind == "device":
         module_name, _, attr = target.partition(":")
         module = importlib.import_module(module_name)
         factory = getattr(module, attr or "plugin")
@@ -41,10 +45,6 @@ def main(argv) -> int:
         from .transport import serve_main
 
         serve_main(DevicePluginShim(factory()))
-    elif kind == "driver":
-        print("driver plugins come with the client runtime, which the port has not "
-              "copied yet (ROADMAP Queue 1)", file=sys.stderr)
-        return 2
     else:
         print(f"unknown plugin kind {kind!r}", file=sys.stderr)
         return 2

@@ -20,11 +20,11 @@ same bytes as ``msgpack.packb(..., use_bin_type=True)``, the same values
 as ``msgpack.unpackb(..., raw=False, strict_map_key=False)``), so the
 port does not import ``msgpack``; and the registry holds the wire types
 of the reference's registry that the port has: its own structs
-(``structs.structs``), the device plugins' payload types
-(``plugins.base.PluginInfo`` and ``plugins.device``'s) and the ACL
-structs (``structs.acl``). The client drivers' payload types, the task
-directory (``TaskDir``) and ``AutopilotConfig`` come with the modules that
-define them.
+(``structs.structs``), the client drivers' payload types
+(``client.drivers.base``'s) and the task directory (``TaskDir``), the
+device plugins' payload types (``plugins.base.PluginInfo`` and
+``plugins.device``'s) and the ACL structs (``structs.acl``).
+``AutopilotConfig`` comes with the module that defines it.
 """
 from __future__ import annotations
 
@@ -72,6 +72,20 @@ def _register_all_structs() -> None:
         if isinstance(obj, type) and dataclasses.is_dataclass(obj):
             _REGISTRY[obj.__name__] = obj
     # non-struct payloads that ride raft/rpc
+    from ..client.drivers.base import (
+        Capabilities,
+        ExitResult,
+        Fingerprint,
+        TaskConfig,
+        TaskHandle,
+        TaskStats,
+        TaskStatus,
+    )
+
+    for cls in (Capabilities, ExitResult, Fingerprint, TaskConfig, TaskHandle,
+                TaskStats, TaskStatus):
+        _REGISTRY[cls.__name__] = cls
+
     from ..plugins.base import PluginInfo
     from ..plugins.device import (
         ContainerReservation,
@@ -85,6 +99,10 @@ def _register_all_structs() -> None:
     for cls in (PluginInfo, ContainerReservation, DetectedDevice, DeviceGroup,
                 DeviceSpec, DeviceStats, Mount):
         _REGISTRY[cls.__name__] = cls
+
+    from ..client.allocdir import TaskDir
+
+    _REGISTRY[TaskDir.__name__] = TaskDir
 
     # ACL payloads (ride raft snapshots and RPC)
     from ..structs import acl as acl_structs

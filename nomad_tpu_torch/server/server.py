@@ -346,7 +346,7 @@ class Server:
                 if torch.cuda.device_count() > 1:
                     raise NotImplementedError(
                         "device_mesh over several CUDA devices is not ported "
-                        "(ROADMAP.md Queue 1, item 5: multi-GPU)")
+                        "(ROADMAP.md Queue 1, item 7: multi-GPU)")
             self.device_batcher = DeviceBatcher(
                 max_batch=self.config.device_batch,
                 window_ms=self.config.device_batch_window_ms,

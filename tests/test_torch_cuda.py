@@ -616,3 +616,49 @@ def test_gpu_fleet_on_the_card_places_as_on_the_cpu(cuda):
     env = managers[0].reserve([AllocatedDeviceResource(vendor="nvidia", type="gpu", name=name,
                                                        device_ids=["0"])]).envs
     assert env == {"CUDA_VISIBLE_DEVICES": "0"}
+
+
+def test_gpu_task_runs_on_the_card_the_server_assigned(cuda, tmp_path):
+    """chip_smoke's GPU task on a port Server (int arm, the kernels on the
+    card) and a port Client running the cuda device plugin: the task,
+    under the exec driver, sees exactly the card the server assigned (by
+    UUID) and computes on it."""
+    import json
+    import os
+    import sys
+    import time
+
+    import chip_smoke
+    from nomad_tpu_torch.client import Client, ClientConfig, ServerProxy
+    from nomad_tpu_torch.jobspec import parse_job
+    from nomad_tpu_torch.server import Server, ServerConfig
+
+    name = torch.cuda.get_device_name(0)
+    env = {k: os.environ[k] for k in ("LD_LIBRARY_PATH",) if os.environ.get(k)}
+    hcl = dict(chip_smoke.client_jobs(name, sys.executable, env))["gpu-task"]
+    server = Server(ServerConfig(deterministic=True, device="cuda", device_min_placements=0))
+    client = Client(ServerProxy(server), ClientConfig(
+        state_dir=str(tmp_path / "client"), node_class="runner", device_plugins={"cuda": {}}))
+    try:
+        server.start()
+        client.start()
+        server.register_job(parse_job(hcl))
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            allocs = server.fsm.state.allocs_by_job("default", "gpu-task", True)
+            if allocs and allocs[0].client_status in ("complete", "failed"):
+                break
+            time.sleep(0.1)
+        (alloc,) = server.fsm.state.allocs_by_job("default", "gpu-task", True)
+        assert alloc.client_status == "complete", alloc.task_states
+        (dev,) = [d for t in alloc.allocated_resources.tasks.values() for d in t.devices]
+        (ordinal,) = dev.device_ids
+        path = os.path.join(client.alloc_dir_base, alloc.id, "main", "local", "gpu.json")
+        with open(path) as f:
+            got = json.load(f)
+        assert got["device_count"] == 1 and got["sum"] == got["expected"]
+        assert got["uuid"] == str(torch.cuda.get_device_properties(int(ordinal)).uuid)
+        assert got["primary_context"] and got["name"] == name
+    finally:
+        client.shutdown()
+        server.stop()

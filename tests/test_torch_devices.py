@@ -217,14 +217,31 @@ def test_device_manager_over_the_subprocess_transport():
 
 
 def test_launch_refuses_the_driver_kind():
-    """The driver half of the launch shim waits for the client: it fails
-    as an unknown kind does, and says which part of the port brings it."""
+    """The launch shim's driver kind: ``launch driver mock`` serves the
+    port's mock driver over the transport (a task runs to its exit code
+    across the process boundary), and a driver name the port does not
+    have is refused, the shim exiting non-zero."""
     import subprocess
 
+    from nomad_tpu_torch.client.drivers.base import TaskConfig
+    from nomad_tpu_torch.plugins.base import PLUGIN_TYPE_DRIVER
+    from nomad_tpu_torch.plugins.driver_plugin import ExternalDriver
+
+    drv = ExternalDriver("mock", spawn_plugin(
+        [sys.executable, "-m", "nomad_tpu_torch.plugins.launch", "driver", "mock"],
+        env=plugin_env()))
+    try:
+        info = drv.plugin_info()
+        assert (info.type, info.name) == (PLUGIN_TYPE_DRIVER, "mock")
+        drv.start_task(TaskConfig(id="l1", name="w", config={"run_for": "50ms",
+                                                              "exit_code": 4}))
+        assert drv.wait_task("l1", timeout=10.0).exit_code == 4
+    finally:
+        drv.close()
     out = subprocess.run([sys.executable, "-m", "nomad_tpu_torch.plugins.launch", "driver",
-                          "mock"], capture_output=True, text=True, timeout=120,
+                          "no-such-driver"], capture_output=True, text=True, timeout=120,
                          env=plugin_env())
-    assert out.returncode == 2 and "client" in out.stderr
+    assert out.returncode != 0 and "no-such-driver" in out.stderr
 
 
 def test_plugin_payloads_cross_the_codec():
@@ -390,6 +407,30 @@ def test_cuda_plugin_fingerprint_and_reserve(monkeypatch):
     res = dm.reserve([AllocatedDeviceResource(vendor="nvidia", type="gpu", name=GPU_NAME,
                                               device_ids=["1"])])
     assert res.envs == {"CUDA_VISIBLE_DEVICES": "1"}
+
+
+@pytest.mark.parametrize("visible,want", [
+    ("3", {"0": "3"}),
+    ("2,0", {"0": "2", "1": "0"}),
+    ("GPU-5e2f61b4-aaaa-bbbb-cccc-0123456789ab,GPU-0c1d2e3f-dddd-eeee-ffff-ba9876543210",
+     {"0": "GPU-5e2f61b4-aaaa-bbbb-cccc-0123456789ab",
+      "1": "GPU-0c1d2e3f-dddd-eeee-ffff-ba9876543210"}),
+])
+def test_cuda_plugin_reserves_the_entry_of_the_callers_visible_set(monkeypatch, visible, want):
+    """Under ``CUDA_VISIBLE_DEVICES`` the plugin's ordinals count within
+    that set: a reservation exports the set's entry (an index or a UUID)
+    for each ordinal, so a task, which inherits the client's environment
+    with the reservation over it, binds the card the server assigned."""
+    fake_cuda(monkeypatch, [GPU_NAME] * len(want))
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", visible)
+    p = CUDADevicePlugin()
+    assert [d.id for g in p.fingerprint() for d in g.devices] == sorted(want)
+    for ordinal, entry in want.items():
+        assert p.reserve([ordinal]).envs == {"CUDA_VISIBLE_DEVICES": entry}
+    assert p.reserve(sorted(want, reverse=True)).envs == {
+        "CUDA_VISIBLE_DEVICES": ",".join(want[o] for o in sorted(want))}
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES")
+    assert p.reserve(["0"]).envs == {"CUDA_VISIBLE_DEVICES": "0"}
 
 
 def test_cuda_plugin_fingerprint_makes_no_cuda_context(monkeypatch):

@@ -705,6 +705,74 @@ def test_device_path_runs_with_jax_nomad_tpu_and_msgpack_blocked():
     assert "DEVICES-ISOLATED-OK" in out.stdout
 
 
+_BLOCKED_CLIENT_RUN = _BLOCKER + textwrap.dedent("""
+    import os, tempfile, time
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.client import Client, ClientConfig, ServerProxy
+    from nomad_tpu_torch.client.drivers import available_drivers
+    from nomad_tpu_torch.server import Server, ServerConfig
+    from nomad_tpu_torch.structs.structs import RestartPolicy
+
+    assert available_drivers() == ["docker", "exec", "java", "mock", "qemu", "raw_exec"]
+    srv = Server(ServerConfig(device="cpu", deterministic=True, device_min_placements=0))
+    state_dir = tempfile.mkdtemp(prefix="blocked-client-")
+    client = Client(ServerProxy(srv), ClientConfig(state_dir=state_dir, node_class="runner",
+                                                   persist_state=True))
+    jobs = []
+    for driver, count in (("raw_exec", 3), ("exec", 2)):
+        job = mock.job()
+        job.type = "batch"
+        job.task_groups[0].count = count
+        task = job.task_groups[0].tasks[0]
+        task.driver = driver
+        task.resources.networks = []
+        task.config = {{"command": "/bin/sh",
+                        "args": ["-c", "echo $NOMAD_ALLOC_INDEX > $NOMAD_TASK_DIR/index"]}}
+        task.restart_policy = RestartPolicy(attempts=0, mode="fail")
+        jobs.append(job)
+    try:
+        srv.start()
+        client.start()
+        for job in jobs:
+            srv.register_job(job)
+        deadline = time.monotonic() + 60
+        def done():
+            return [a.client_status for j in jobs
+                    for a in srv.fsm.state.allocs_by_job(j.namespace, j.id, True)]
+        while time.monotonic() < deadline and done() != ["complete"] * 5:
+            time.sleep(0.05)
+        assert done() == ["complete"] * 5, done()
+        for j in jobs:
+            for a in srv.fsm.state.allocs_by_job(j.namespace, j.id, True):
+                task = j.task_groups[0].tasks[0].name
+                path = os.path.join(client.alloc_dir_base, a.id, task, "local", "index")
+                assert open(path).read().strip() == str(a.index()), (path, a.name)
+        assert srv.device_batcher.stats["evals"] >= 1
+    finally:
+        client.shutdown()
+        srv.stop()
+    assert sys.modules.get("msgpack") is None
+    assert not any(m == "nomad_tpu" or m.startswith("nomad_tpu.") for m in sys.modules)
+    assert sys.modules.get("jax") is None
+    print("CLIENT-ISOLATED-OK")
+""")
+
+
+def test_client_runs_jobs_with_jax_nomad_tpu_and_msgpack_blocked():
+    """The client runtime in a process where importing jax, anything of
+    nomad_tpu, or msgpack fails: a port server (engine on the CPU, int
+    arm) and a port client with its SQLite state DB run a raw_exec batch
+    job and an exec batch job (through the port's nomad-executor) to
+    ``complete``, each task writing its alloc index."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_CLIENT_RUN.format(repo=str(REPO))],
+                         capture_output=True, text=True, timeout=240, env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stdout + out.stderr[-4000:]
+    assert "CLIENT-ISOLATED-OK" in out.stdout
+
+
 def test_server_default_config_without_cuda_raises(monkeypatch):
     """``Server(ServerConfig())`` asks for CUDA: without a card it raises
     before starting anything, rather than carrying on on the CPU."""

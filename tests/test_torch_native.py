@@ -1,8 +1,9 @@
 """The port's native substrate: its own build of the C++ segmented log
 (``native/nomadlog/nomadlog.cpp``), the durable ``InProcRaft`` on it, and
-a server that survives a restart from its data dir — ports of
-tests/test_native.py's log and durable-raft cases (the exec-driver cases
-wait for the client). Then the log against the JAX package's: a log either
+a server that survives a restart from its data dir, and the exec driver
+on the port's own build of the task executor
+(``native/executor/nomad_executor.cpp``) — ports of tests/test_native.py.
+Then the log against the JAX package's: a log either
 package writes, the other reads, record for record; and the build: one
 library however many processes ask for it at once, and a failing compiler
 raises instead of leaving a half-written library behind."""
@@ -246,5 +247,106 @@ def test_failed_build_raises_and_leaves_no_library(tmp_path, monkeypatch):
     with pytest.raises(native.NativeBuildError, match="native build of libnomadlog.so failed"):
         native.ensure_built("libnomadlog.so")
     assert not os.path.exists(os.path.join(str(tmp_path / "build"), "libnomadlog.so"))
-    with pytest.raises(native.NativeBuildError, match="unknown native target"):
+    with pytest.raises(native.NativeBuildError, match="native build of nomad-executor failed"):
         native.ensure_built("nomad-executor")
+    assert sorted(os.listdir(str(tmp_path / "build"))) == [".lock"]
+    with pytest.raises(native.NativeBuildError, match="unknown native target"):
+        native.ensure_built("no-such-target")
+
+
+# -- the exec driver on the port's nomad-executor ------------------------------
+
+
+def test_exec_driver_runs_through_native_executor(tmp_path):
+    from nomad_tpu_torch.client.allocdir import AllocDir
+    from nomad_tpu_torch.client.drivers.base import TaskConfig, new_driver
+
+    ad = AllocDir(str(tmp_path), "alloc1")
+    ad.build()
+    td = ad.new_task_dir("t")
+    td.build()
+    os.makedirs(td.log_dir, exist_ok=True)
+    d = new_driver("exec")
+    cfg = TaskConfig(
+        id="t1", name="t",
+        config={"command": "/bin/sh", "args": ["-c", "echo exec-$MARK"]},
+        env={"MARK": "native", "PATH": "/usr/bin:/bin"},
+        task_dir=td,
+        stdout_path=os.path.join(td.log_dir, "t.stdout.0"),
+    )
+    handle = d.start_task(cfg)
+    assert handle.driver_state["pid"] > 0
+    res = d.wait_task("t1", timeout=10.0)
+    assert res is not None and res.exit_code == 0
+    with open(cfg.stdout_path) as f:
+        assert f.read().strip() == "exec-native"
+    d.destroy_task("t1")
+
+
+def test_exec_driver_kill_escalation(tmp_path):
+    from nomad_tpu_torch.client.allocdir import AllocDir
+    from nomad_tpu_torch.client.drivers.base import TaskConfig, new_driver
+
+    ad = AllocDir(str(tmp_path), "alloc2")
+    ad.build()
+    td = ad.new_task_dir("t")
+    td.build()
+    d = new_driver("exec")
+    cfg = TaskConfig(
+        id="t1", name="t",
+        config={"command": "/bin/sh", "args": ["-c", "trap '' TERM; sleep 60"],
+                "kill_timeout": 0.5},
+        env={"PATH": "/usr/bin:/bin"},
+        task_dir=td,
+    )
+    d.start_task(cfg)
+    time.sleep(0.3)
+    start = time.monotonic()
+    d.stop_task("t1", timeout_s=1.0)
+    res = d.wait_task("t1", timeout=10.0)
+    assert time.monotonic() - start < 10.0
+    assert res is not None and res.signal == 9  # escalated by the executor
+
+
+def test_exec_driver_survives_client_restart(tmp_path):
+    """The executor supervises independently: 'restart' the driver and
+    recover the still-running task by pid."""
+    from nomad_tpu_torch.client.allocdir import AllocDir
+    from nomad_tpu_torch.client.drivers.base import TaskConfig, new_driver
+
+    ad = AllocDir(str(tmp_path), "alloc3")
+    ad.build()
+    td = ad.new_task_dir("t")
+    td.build()
+    d = new_driver("exec")
+    cfg = TaskConfig(
+        id="t1", name="t",
+        config={"command": "/bin/sleep", "args": ["60"]},
+        env={"PATH": "/usr/bin:/bin"},
+        task_dir=td,
+    )
+    handle = d.start_task(cfg)
+    time.sleep(0.2)
+
+    d2 = new_driver("exec")  # fresh driver instance = restarted client
+    d2.recover_task(handle)
+    status = d2.inspect_task("t1")
+    assert status.state == "running"
+    os.kill(handle.driver_state["pid"], 15)  # terminate the executor
+    res = d2.wait_task("t1", timeout=10.0)
+    assert res is not None
+
+
+def test_executor_is_built_into_the_ports_build_dir():
+    """``ensure_built("nomad-executor")`` compiles the unedited top-level
+    source into the port's git-ignored ``_build/`` and returns a program
+    that runs; a second call returns the same file without a build."""
+    path = native.ensure_built("nomad-executor")
+    assert path == os.path.join(native.BUILD_DIR, "nomad-executor")
+    assert os.access(path, os.X_OK)
+    assert native.SOURCES["nomad-executor"] == str(REPO / "native" / "executor" /
+                                                   "nomad_executor.cpp")
+    mtime = os.path.getmtime(path)
+    assert native.ensure_built("nomad-executor") == path and os.path.getmtime(path) == mtime
+    out = subprocess.run([path], capture_output=True, text=True, timeout=30)
+    assert out.returncode != 0 and "--status-file" in out.stderr

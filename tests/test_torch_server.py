@@ -413,7 +413,7 @@ def test_device_mesh_over_several_gpus_is_not_ported(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
         Server(ServerConfig(device="cuda", device_mesh=True))
 
 
