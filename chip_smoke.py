@@ -3,7 +3,7 @@
 kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N] [--churn-only | --wire-only | --devices-only |
-                                      --client-only]
+                                      --client-only | --agent-only]
 
 Run from the root of a checkout on a machine with one CUDA card, nvcc
 and PyTorch built for CUDA. Phases, each of which fails the run:
@@ -144,11 +144,13 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    while this process's heap is small): (a) three of the port's Servers in this process (ServerConfig
    defaults, the float arm, 16 workers each), each on its own WireRaft
    over TCP with a durable native log and behind its own RPCServer; the
-   C1M fleet through ``raft_apply``, 10,000 placements of the job mix
-   (60,000 before the devices phase and 20,000 before the client phase;
-   cut to make room) through ``Job.Register`` over the wire, then the
-   leader's raft and RPC stop (its Server stays up), a new leader is
-   elected and 2,500 more (10,000, then 5,000 before) go through it. It fails unless both leaders launched K3,
+   C1M fleet through ``raft_apply``, 7,500 placements of the job mix
+   (60,000 before the devices phase, 20,000 before the client phase and
+   10,000 before the agent phase; cut to make room) through
+   ``Job.Register`` over the wire, then the leader's raft and RPC stop
+   (its Server stays up), a new leader is elected and 2,000 more
+   (10,000, 5,000, then 2,500 before) go through it. It fails unless
+   both leaders launched K3,
    every captured launch equals its plain version (within the float
    bound), the survivors' FSMs hold the same allocs, no node is
    overcommitted and the invariant sweep reads zero; it prints the
@@ -214,6 +216,27 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    processes, and whether the GPU task held a CUDA context.
    ``--client-only`` builds the kernels and runs only this phase (no
    kernels line, no result).
+17. the agent (after the client phase): an ``Agent`` built through the
+   CLI's config path from an HCL file (server and client in one, on the
+   card, 16 schedulers); the C1M fleet registered over RPC and kept
+   alive by the heartbeat pump's process; through ``python -m
+   nomad_tpu_torch.cli`` processes: a raw_exec batch job of AGENT_BATCH
+   allocs on the agent's own client (to ``complete``; a blocking query
+   on /v1/jobs must wake on it), ``job status``, ``alloc logs``, ``alloc
+   fs``; a raw_exec system job over every node (K4 f32); ``job run`` of
+   C1M's template mix (AGENT_PLACEMENTS, float arm: K3); ``job plan``
+   (K1 f32 at B = 1), ``node status``, ``operator raft list-peers``,
+   ``job stop``. Every placement commits, no node is overcommitted,
+   every K3 and K4 launch equals its plain version, every task's stdout
+   is what it printed, no task or logmon is left. Then ``python -m
+   nomad_tpu_torch.cli agent -dev`` as a process of its own: a batch job
+   through the CLI to ``complete``, device dispatches above 0 and no
+   host fallback in /v1/metrics, exit 0 within 30 s of SIGINT. It prints
+   the fleet's registration s, the mix's placements/s, the CLI's ``job
+   run`` ms, ``Job.Plan`` ms, the batch job's seconds to ``complete``,
+   the blocking query's wake ms, the launches with their kernel ms, and
+   the process's seconds to HTTP and to its first leader.
+   ``--agent-only`` builds the kernels and runs only this phase.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -2234,10 +2257,11 @@ def log_churn(rec, card):
 # 1.0 s, sized for one server a process
 #: the wire cluster's placements before and after its failover (60,000
 #: and 10,000 before the devices phase, 20,000 and 5,000 before the client
-#: phase; cut to make room for them: every captured launch is held
-#: against the plain float step, 104.5 s of the phase's 170.8 s at 20,000)
-WIRE_PLACEMENTS = 10_000
-WIRE_FAILOVER_PLACEMENTS = 2_500
+#: phase, 10,000 and 2,500 before the agent phase; cut to make room for
+#: them: every captured launch is held against the plain float step,
+#: 104.5 s of the phase's 170.8 s at 20,000)
+WIRE_PLACEMENTS = 7_500
+WIRE_FAILOVER_PLACEMENTS = 2_000
 WIRE_RAFT = dict(election_timeout_min=2.0, election_timeout_max=4.0, heartbeat_interval=0.1,
                  rpc_timeout=30.0, apply_timeout=120.0)
 # bench.py's chaos-crash-5K (bench.py:1263-1356) and serve-100Kwatch
@@ -3695,6 +3719,623 @@ def log_client(rec, card):
         log(f"  K4 launch {i}: kernel_ms={k[0]:.4f} plain_ms={k[1]:.2f} bound_ms={k[2]:.6f}")
 
 
+#: the agent phase: the template mix's placements over the fleet, the
+#: batch job's allocs on the agent's own client, the heartbeat pump's rest
+#: between passes (a node expires 20-40 s after its last heartbeat: TTL
+#: 10-30 s and 10 s of grace), the phase's own time limit (holds
+#: included) and the real agent process's time to serve, place and stop
+AGENT_PLACEMENTS = 10_000
+AGENT_BATCH = 50
+AGENT_PUMP_S = 5.0
+AGENT_PHASE_S = 240.0
+AGENT_PROC_S = 90.0
+#: the datacenter of the agent's own client node (the fleet is in dc1)
+AGENT_DC = "smoke"
+
+
+def agent_config_hcl(root: str, device: str) -> str:
+    """The phase's agent config file: server and client in one agent on
+    the given device, SERVER_WORKERS schedulers, ephemeral ports."""
+    return f"""name       = "smoke-agent"
+datacenter = "{AGENT_DC}"
+data_dir   = {json.dumps(root)}
+bind_addr  = "127.0.0.1"
+device     = "{device}"
+
+ports {{
+  http = 0
+  rpc  = 0
+  serf = 0
+}}
+
+server {{
+  enabled        = true
+  num_schedulers = {SERVER_WORKERS}
+}}
+
+client {{
+  enabled    = true
+  node_class = "smoke-runner"
+}}
+"""
+
+
+def c1m_job_hcl(tpl, job_id: str, count: int) -> str:
+    """A C1M template (``c1m_templates``) as a jobspec over the dc1 fleet:
+    the ask, the count, 50 MB of ephemeral disk, the spread and affinity
+    stanzas of the first ten, one exec task."""
+    stanzas = ""
+    if tpl["stanzas"]:
+        stanzas = """spread {
+      attribute = "${node.datacenter}"
+      weight    = 50
+      target "dc1" {
+        percent = 100
+      }
+    }
+    affinity {
+      attribute = "${attr.kernel.name}"
+      value     = "linux"
+      weight    = 50
+    }"""
+    return f"""job "{job_id}" {{
+  datacenters = ["dc1"]
+  type        = "{tpl['kind']}"
+  group "web" {{
+    count = {count}
+    ephemeral_disk {{
+      size = 50
+    }}
+    {stanzas}
+    task "web" {{
+      driver = "exec"
+      config {{
+        command = "/bin/date"
+      }}
+      resources {{
+        cpu    = {tpl['cpu']}
+        memory = {tpl['mem']}
+      }}
+    }}
+  }}
+}}
+"""
+
+
+def c1m_mix_hcl(total: int, prefix: str = "c1m"):
+    """``c1m_mixed_jobs`` as jobspecs: (job id, count, HCL), the templates
+    round-robin until the placement count is exactly ``total``."""
+    templates = c1m_templates()
+    out, placed, i = [], 0, 0
+    while placed < total:
+        tpl = templates[i % len(templates)]
+        count = min(tpl["count"], total - placed)
+        out.append((f"{prefix}-{i}", count, c1m_job_hcl(tpl, f"{prefix}-{i}", count)))
+        placed += count
+        i += 1
+    return out
+
+
+def agent_jobs():
+    """The agent phase's other jobspecs: (job id, HCL) of the raw_exec
+    batch job on the agent's own client (each task prints its alloc
+    index) and the raw_exec system job over every node."""
+    batch = f"""job "smoke-batch" {{
+  datacenters = ["{AGENT_DC}"]
+  type        = "batch"
+  group "run" {{
+    count = {AGENT_BATCH}
+    restart {{
+      attempts = 0
+      mode     = "fail"
+    }}
+    task "main" {{
+      driver = "raw_exec"
+      config {{
+        command = "/bin/sh"
+        args    = ["-c", "echo $NOMAD_ALLOC_INDEX"]
+      }}
+      resources {{
+        cpu    = 20
+        memory = 10
+      }}
+    }}
+  }}
+}}
+"""
+    system = f"""job "smoke-system" {{
+  datacenters = ["dc1", "{AGENT_DC}"]
+  type        = "system"
+  group "agent" {{
+    task "collect" {{
+      driver = "raw_exec"
+      config {{
+        command = "/bin/sleep"
+        args    = ["3600"]
+      }}
+      resources {{
+        cpu    = 10
+        memory = 10
+      }}
+    }}
+  }}
+}}
+"""
+    return [("smoke-batch", batch), ("smoke-system", system)]
+
+
+def cli_start(args, addr=None):
+    """``python -m nomad_tpu_torch.cli [-address=<addr>] <args>`` from the
+    repo root, output piped."""
+    import os
+
+    argv = ([f"-address={addr}"] if addr else []) + list(args)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.Popen([sys.executable, "-m", "nomad_tpu_torch.cli", *argv],
+                            cwd=str(REPO), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def cli_run(args, addr=None, ok=(0,), timeout=120.0):
+    """Run the port's CLI to its end: (output, wall ms); fails unless its
+    exit code is in ``ok``."""
+    t0 = time.perf_counter()
+    proc = cli_start(args, addr)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        raise AssertionError(f"agent: `{' '.join(args)}` did not end in {timeout:.0f} s: "
+                             f"{out[-1500:]}")
+    if proc.returncode not in ok:
+        raise AssertionError(f"agent: `{' '.join(args)}` exited {proc.returncode}: "
+                             f"{out[-1500:]}")
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def http_json(url, timeout=30.0):
+    """(decoded JSON, the X-Nomad-Index header) of a GET."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read() or b"null"), int(r.headers.get("X-Nomad-Index") or 0)
+
+
+def _free_local_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def metrics_view(addr):
+    """(gauges, counters) of the agent's /v1/metrics by name."""
+    m, _ = http_json(addr + "/v1/metrics")
+    return ({g["Name"]: g["Value"] for g in m.get("Gauges") or []},
+            {c["Name"]: c["Count"] for c in m.get("Counters") or []})
+
+
+def phase_agent_process(root: str) -> dict:
+    """The real entry point: ``python -m nomad_tpu_torch.cli agent -dev``
+    as a process of its own (the card by default), a raw_exec batch job of
+    AGENT_BATCH allocs through the CLI to ``complete``, the engine's device
+    dispatches read from /v1/metrics (above 0, and no host fallback), then
+    SIGINT: the agent must exit 0 within 30 s. Returns its times."""
+    import os
+    import signal
+
+    deadline = time.monotonic() + AGENT_PROC_S
+    http_port, rpc_port = _free_local_port(), _free_local_port()
+    addr = f"http://127.0.0.1:{http_port}"
+    argv = ["agent", "-dev", "-http-port", str(http_port), "-rpc-port", str(rpc_port),
+            "-data-dir", os.path.join(root, "dev-agent")]
+    if DEVICE != "cuda":
+        argv += ["-device", DEVICE]
+    rec = {}
+    t0 = time.perf_counter()
+    proc = cli_start(argv)
+    lines = []
+
+    def wait(cond, what):
+        while not cond():
+            if proc.poll() is not None:
+                raise AssertionError(f"agent process: exited {proc.returncode} before {what}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"agent process: {what} not reached in {AGENT_PROC_S:.0f} s")
+            time.sleep(0.05)
+
+    def leader():
+        try:
+            out, _ = http_json(addr + "/v1/status/leader", timeout=2.0)
+        except OSError:
+            return None
+        rec.setdefault("http_ready_s", time.perf_counter() - t0)
+        return out or None
+
+    try:
+        wait(leader, "a leader over HTTP")
+        rec["leader_s"] = time.perf_counter() - t0
+        wait(lambda: any(n["Status"] == "ready" for n in http_json(addr + "/v1/nodes")[0] or []),
+             "its client node ready")
+        job = os.path.join(root, "dev-batch.hcl")
+        with open(job, "w") as f:
+            f.write(dict(agent_jobs())["smoke-batch"].replace(
+                f'datacenters = ["{AGENT_DC}"]', 'datacenters = ["dc1"]').replace(
+                '"smoke-batch"', '"dev-batch"'))
+        seen_fallback = []
+
+        def complete():
+            allocs, _ = http_json(addr + "/v1/job/dev-batch/allocations")
+            seen_fallback.append(metrics_view(addr)[1].get(
+                "nomad.tpu_engine.dispatch_fallback_host", 0))
+            if any(a["ClientStatus"] == "failed" for a in allocs or []):
+                raise AssertionError(f"agent process: dev-batch allocs failed")
+            return len(allocs or []) == AGENT_BATCH and all(
+                a["ClientStatus"] == "complete" for a in allocs)
+
+        t_run = time.perf_counter()
+        _, rec["job_run_ms"] = cli_run(["job", "run", job], addr)
+        wait(complete, f"dev-batch's {AGENT_BATCH} allocs complete")
+        rec["complete_s"] = time.perf_counter() - t_run
+        # the device batcher's gauges ride the leader's 10 s stats sweep
+        wait(lambda: metrics_view(addr)[0].get("nomad.device_batcher.dispatches", 0) > 0,
+             "nomad.device_batcher.dispatches above 0 in /v1/metrics")
+        gauges, counters = metrics_view(addr)
+        rec["dispatches"] = gauges["nomad.device_batcher.dispatches"]
+        rec["fallback_host"] = max(seen_fallback + [counters.get(
+            "nomad.tpu_engine.dispatch_fallback_host", 0)])
+        if rec["fallback_host"]:
+            raise AssertionError(f"agent process: {rec['fallback_host']} host fallbacks")
+    finally:
+        t_sig = time.perf_counter()
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+        try:
+            out, _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            raise AssertionError(f"agent process: not stopped 30 s after SIGINT: {out[-1500:]}")
+        lines = out.splitlines()
+    rec["stop_s"] = time.perf_counter() - t_sig
+    if proc.returncode != 0:
+        raise AssertionError(f"agent process: exited {proc.returncode} after SIGINT: "
+                             f"{' | '.join(lines[-8:])}")
+    return rec
+
+
+def phase_agent(kernels, step, forced, parity, seed: int):
+    """The operator surface on the card. (a) In this process: an ``Agent``
+    built through the CLI's own config path (``load_config_sources`` and
+    ``apply_file_config`` on an HCL file: server and client, ``device``
+    the card, SERVER_WORKERS schedulers); the C1M fleet registered over
+    RPC (``Node.Register`` through ``RemoteServerProxy``, four threads)
+    and kept alive by the heartbeat pump's process; then, through ``python
+    -m nomad_tpu_torch.cli`` processes against the agent's HTTP address: a
+    raw_exec batch job of AGENT_BATCH allocs on the agent's own client
+    (run to ``complete``; a blocking query on /v1/jobs parked before it
+    must wake on it), ``job status``, ``alloc logs`` and ``alloc fs`` of
+    one of them; a raw_exec system job over every node (K4 f32; before the
+    mix, which packs some nodes full); ``job run`` of C1M's template mix
+    (AGENT_PLACEMENTS; K3, the float arm); ``job plan`` of one more
+    template (K1 f32 at B = 1; also timed through the SDK), ``node
+    status``, ``operator raft list-peers`` and ``job stop`` of the system
+    job. Fails unless every placement commits, no node is overcommitted,
+    nothing takes the unported or fallback gate, every K3 and K4 launch
+    equals its plain version, the batch tasks' stdout read through the
+    logs API is what they printed, and no task or logmon process is left.
+    (b) The real entry point (``phase_agent_process``). Returns (record,
+    spy)."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    from collections import Counter
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+    from nomad_tpu_torch.agent.config_file import apply_file_config, load_config_sources
+    from nomad_tpu_torch.api import Client as APIClient
+    from nomad_tpu_torch.api import Config as APIConfig
+    from nomad_tpu_torch.chaos.pump import HeartbeatPump
+    from nomad_tpu_torch.rpc.endpoints import RemoteServerProxy
+    from nomad_tpu_torch.structs import structs
+    from nomad_tpu_torch.structs.funcs import allocs_fit
+
+    t_phase = time.perf_counter()
+    deadline = time.monotonic() + AGENT_PHASE_S
+    rec = {}
+    root = tempfile.mkdtemp(prefix="smoke-agent-")
+    agent = pump = None
+
+    def wait(cond, what):
+        while not cond():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"agent: {what} not reached within the phase's "
+                                     f"{AGENT_PHASE_S:.0f} s")
+            time.sleep(0.02)
+
+    def write(name, text):
+        path = os.path.join(root, name)
+        with open(path, "w") as f:
+            f.write(text)
+        return path
+
+    try:
+        with _ProcWatch() as procs:
+            cfg_path = write("agent.hcl", agent_config_hcl(os.path.join(root, "data"), DEVICE))
+            cfg = apply_file_config(AgentConfig(), load_config_sources([cfg_path]))
+            if (cfg.device, cfg.server_enabled, cfg.client_enabled) != (DEVICE, True, True):
+                raise AssertionError(f"agent: the config file gave {cfg}")
+            agent = Agent(cfg).start()
+            addr = agent.http_addr
+            api = APIClient(APIConfig(address=addr))
+            server, state = agent.server, agent.server.fsm.state
+            wait(lambda: server.is_leader, "leadership")
+            wait(lambda: state.node_by_id(agent.client.node.id) is not None,
+                 "the agent's client registered")
+            local_id = agent.client.node.id
+
+            # the fleet over RPC, four connections at once; raw_exec too,
+            # for the system job
+            fleet = c1m_nodes(mock, seed)
+            for n in fleet:
+                n.attributes["driver.raw_exec"] = "1"
+                n.drivers["raw_exec"] = structs.DriverInfo(detected=True, healthy=True)
+            errors = []
+
+            def register(part):
+                proxy = RemoteServerProxy(*agent.rpc.addr)
+                try:
+                    for n in part:
+                        proxy.register_node(n)
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(repr(e))
+                finally:
+                    proxy.close()
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=register, args=(fleet[i::4],)) for i in range(4)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            rec["fleet_s"] = time.perf_counter() - t0
+            if errors:
+                raise AssertionError(f"agent: Node.Register failed: {errors[:3]}")
+            rec["nodes"] = state.read_with_index(lambda s: len(s.nodes()))[0]
+            if rec["nodes"] != N_NODES + 1:
+                raise AssertionError(f"agent: {rec['nodes']} nodes, not {N_NODES + 1}")
+            pump = HeartbeatPump(interval=AGENT_PUMP_S, call_timeout=10.0,
+                                 log_path=os.path.join(root, "pump.log"))
+            pump.start()
+            pump.update([n.id for n in fleet], [], [], agent.rpc.addr)
+
+            mix = c1m_mix_hcl(AGENT_PLACEMENTS)
+            mix_paths = [write(f"{job_id}.hcl", hcl) for job_id, _, hcl in mix]
+            specs = dict(agent_jobs())
+            plan_tpl = c1m_templates()[len(mix) % len(c1m_templates())]
+            plan_hcl = c1m_job_hcl(plan_tpl, "c1m-plan", plan_tpl["count"])
+            with _Spy(kernels) as spy:
+                # 1. the batch job on the agent's own client; a blocking
+                # query on /v1/jobs parked first
+                _, index = http_json(addr + "/v1/jobs")
+                woke = {}
+
+                def blocked():
+                    try:
+                        jobs, idx = http_json(f"{addr}/v1/jobs?index={index}&wait=60s", 90.0)
+                        woke.update(at_ns=time.time_ns(), index=idx, jobs=len(jobs))
+                    except Exception as e:  # noqa: BLE001 — reported below
+                        woke["error"] = repr(e)
+
+                waiter = threading.Thread(target=blocked, name="blocking-jobs")
+                waiter.start()
+                time.sleep(0.2)  # parked before the write
+                # the write's start: the HTTP route's call into the server
+                register = server.register_job
+                writes = []
+
+                def timed_register(job, *args, **kwargs):
+                    writes.append(time.time_ns())
+                    return register(job, *args, **kwargs)
+
+                server.register_job = timed_register
+                t0 = time.perf_counter()
+                _, rec["batch_run_ms"] = cli_run(["job", "run", write("batch.hcl",
+                                                                      specs["smoke-batch"])],
+                                                 addr)
+
+                def batch_done():
+                    allocs = _live_allocs(state, "smoke-batch")
+                    if any(a.client_status == "failed" for a in allocs):
+                        raise AssertionError("agent: smoke-batch allocs failed")
+                    return len(allocs) == AGENT_BATCH and all(
+                        a.client_status == structs.ALLOC_CLIENT_COMPLETE for a in allocs)
+
+                wait(batch_done, f"smoke-batch's {AGENT_BATCH} allocs complete")
+                rec["batch_s"] = time.perf_counter() - t0
+                waiter.join(timeout=30)
+                del server.register_job
+                if "at_ns" not in woke or woke["index"] <= index or len(writes) != 1:
+                    raise AssertionError(f"agent: the blocking query on /v1/jobs gave {woke} "
+                                         f"({len(writes)} registrations)")
+                rec["wake_ms"] = (woke["at_ns"] - writes[0]) / 1e6
+                batch = _live_allocs(state, "smoke-batch")
+                if any(a.node_id != local_id for a in batch):
+                    raise AssertionError("agent: smoke-batch placed off the agent's client")
+                bad = []
+                for a in batch:
+                    text = api.alloc_fs.logs(a.id, "main", "stdout").decode()
+                    if text.strip() != str(a.index()):
+                        bad.append((a.name, text[:40]))
+                if bad:
+                    raise AssertionError(f"agent: {len(bad)} tasks' stdout wrong: {bad[:3]}")
+                one = batch[0]
+                status, _ = cli_run(["job", "status", "smoke-batch"], addr)
+                logs, _ = cli_run(["alloc", "logs", one.id, "main"], addr)
+                listing, _ = cli_run(["alloc", "fs", one.id, "alloc/logs"], addr)
+                if ("smoke-batch" not in status or logs.strip() != str(one.index())
+                        or "main.stdout.0" not in listing):
+                    raise AssertionError(f"agent: CLI views of {one.name}: {status[-400:]!r} "
+                                         f"{logs!r} {listing!r}")
+
+                # 2. the system job over every node (K4), before the mix
+                # packs nodes full
+                t0 = time.perf_counter()
+                cli_run(["job", "run", "-detach", write("system.hcl", specs["smoke-system"])],
+                        addr)
+                try:
+                    wait(lambda: len(_live_allocs(state, "smoke-system")) == N_NODES + 1,
+                         "smoke-system on every node")
+                except AssertionError as e:
+                    nodes = state.read_with_index(lambda s: list(s.nodes()))[0]
+                    evals = state.read_with_index(
+                        lambda s: s.evals_by_job("default", "smoke-system"))[0]
+                    raise AssertionError(
+                        f"{e}: {len(_live_allocs(state, 'smoke-system'))} allocs; nodes by "
+                        f"status {Counter(n.status for n in nodes)}; evals "
+                        f"{[(ev.status, ev.triggered_by, sorted(ev.failed_tg_allocs or {})) for ev in evals]}") from None
+                rec["system_s"] = time.perf_counter() - t0
+                wait(lambda: [a.client_status for a in _live_allocs(state, "smoke-system")
+                              if a.node_id == local_id] == ["running"],
+                     "smoke-system running on the agent's client")
+
+                # 3. the template mix, every `job run` at once
+                before = state.count_allocs_desired_run()
+                t0 = time.perf_counter()
+                runs = [(cli_start(["job", "run", "-detach", p], addr), time.perf_counter())
+                        for p in mix_paths]
+                run_ms = []
+                for proc, t_start in runs:
+                    out, _ = proc.communicate(timeout=120)
+                    if proc.returncode != 0:
+                        raise AssertionError(f"agent: job run exited {proc.returncode}: "
+                                             f"{out[-1500:]}")
+                    run_ms.append((time.perf_counter() - t_start) * 1e3)
+                wait(lambda: state.count_allocs_desired_run() - before == AGENT_PLACEMENTS,
+                     f"the mix's {AGENT_PLACEMENTS} placements")
+                rec["mix_s"] = time.perf_counter() - t0
+                rec["mix_placements_per_s"] = AGENT_PLACEMENTS / rec["mix_s"]
+                rec["job_run_ms"] = _percentiles(run_ms)
+                rec["mix_jobs"] = len(mix)
+
+                # 4. `job plan` of one more template (K1 f32, B = 1)
+                plan_out, rec["plan_cli_ms"] = cli_run(
+                    ["job", "plan", write("plan.hcl", plan_hcl)], addr, ok=(0, 1))
+                parsed = api.jobs.parse_hcl(plan_hcl)
+                t0 = time.perf_counter()
+                plan = api.jobs.plan(parsed, diff=True)
+                rec["plan_ms"] = (time.perf_counter() - t0) * 1e3
+                plan = plan[0] if isinstance(plan, tuple) else plan
+                placed = plan["Annotations"]["DesiredTGUpdates"]["web"]["Place"]
+                if placed != plan_tpl["count"] or plan.get("FailedTGAllocs"):
+                    raise AssertionError(f"agent: Job.Plan gave {plan.get('Annotations')}")
+
+                # 5. node status, raft peers, the system job stopped
+                nodes_out, _ = cli_run(["node", "status"], addr)
+                peers, _ = cli_run(["operator", "raft", "list-peers"], addr)
+                if len(nodes_out.strip().splitlines()) != N_NODES + 2 or "smoke-agent" not in peers:
+                    raise AssertionError(f"agent: node status / list-peers: {peers!r}")
+                cli_run(["job", "stop", "-detach", "smoke-system"], addr)
+                wait(lambda: all(a.client_status == structs.ALLOC_CLIENT_COMPLETE
+                                 for a in _live_allocs(state, "smoke-system")
+                                 if a.node_id == local_id), "smoke-system stopped")
+                if not server.drain_evals(max(deadline - time.monotonic(), 1.0)):
+                    raise AssertionError("agent: the broker did not drain")
+            rec["launches"] = spy.launches
+            rec["k3_launches"], rec["k4_launches"] = len(spy.batched), len(spy.forced)
+            unported = spy.count("nomad.tpu_engine.unported")
+            fallback = spy.count("nomad.tpu_engine.fallback")
+            host = spy.count("nomad.tpu_engine.dispatch_fallback_host")
+            if unported or fallback or host or not rec["k3_launches"] or not rec["k4_launches"]:
+                raise AssertionError(f"agent: unported={unported} fallback={fallback} "
+                                     f"host={host} launches={spy.launches} reasons "
+                                     f"{fallback_reasons(spy.reasons)}")
+
+            # every placement committed, none overcommits a node
+            counts = {job_id: count for job_id, count, _ in mix}
+            counts.update({"smoke-batch": AGENT_BATCH})
+            short = {j: len(_live_allocs(state, j)) for j, c in counts.items()
+                     if len(_live_allocs(state, j)) != c}
+            if short:
+                raise AssertionError(f"agent: jobs short of their count: {short}")
+            by_node = {}
+            for a in state.read_with_index(lambda s: list(s.allocs()))[0]:
+                if a.desired_status == structs.ALLOC_DESIRED_RUN and not a.terminal_status():
+                    by_node.setdefault(a.node_id, []).append(a)
+            nodes = state.read_with_index(lambda s: list(s.nodes()))[0]
+            over = [n.name for n in nodes if not allocs_fit(n, by_node.get(n.id, []))[0]]
+            if over:
+                raise AssertionError(f"agent: nodes overcommitted: {over[:3]}")
+            rec["nodes_checked"] = len(nodes)
+            rec["pump"] = pump_totals({"heartbeat_pump": pump.report()})
+
+            agent.shutdown()
+            agent = None
+            pump.stop()
+            pump = None
+            procs.sample()
+            rec["peak"] = dict(procs.peak)
+            wait(lambda: not any(procs.alive().values()), "every task and logmon gone")
+
+        # every captured launch against its plain version (float arm)
+        rec["held"] = hold_churn_launches(step, parity, spy.batched, True, "agent")
+        rec["k3_ms"] = [(fresh.parts()[0][0].shape[0], fresh.parts()[2][0].shape[1],
+                         packed_scan_ms(kernels, fresh)) for fresh, *_ in spy.batched]
+        rec["k3_row"] = replay_batched(kernels, step, parity, spy.batched[-1],
+                                       "agent last K3 launch", True)
+        rec["k4"] = [replay_forced(kernels, forced, launch, f"agent K4 launch {i}")
+                     for i, launch in enumerate(spy.forced)]
+        rec["in_process_s"] = time.perf_counter() - t_phase
+        rec["process"] = phase_agent_process(root)
+        rec["phase_s"] = time.perf_counter() - t_phase
+        if rec["phase_s"] > AGENT_PHASE_S:
+            raise AssertionError(f"agent: the phase took {rec['phase_s']:.1f} s")
+        return rec, spy
+    finally:
+        if agent is not None:
+            agent.shutdown()
+        if pump is not None:
+            pump.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def log_agent(rec, card):
+    """The agent phase's lines."""
+    p, proc = rec["job_run_ms"], rec["process"]
+    log(f"agent: {rec['nodes']} nodes (the fleet registered over RPC in {rec['fleet_s']:.3f} s, "
+        f"the agent's own client among them); `job run` of {rec['mix_jobs']} C1M templates, "
+        f"{AGENT_PLACEMENTS} placements in {rec['mix_s']:.3f} s "
+        f"({rec['mix_placements_per_s']:.1f} placements/s from the first `job run`); CLI "
+        f"`job run` wall ms p50 {p['p50']:.1f} p99 {p['p99']:.1f}; on {card}")
+    log(f"  smoke-batch: {AGENT_BATCH} raw_exec allocs on the agent's client, `job run` "
+        f"{rec['batch_run_ms']:.1f} ms, all complete {rec['batch_s']:.3f} s after it, every "
+        f"stdout right; a blocking query on /v1/jobs woke {rec['wake_ms']:.1f} ms after the "
+        f"route called Server.register_job")
+    log(f"  smoke-system on {N_NODES + 1} nodes in {rec['system_s']:.3f} s; Job.Plan over "
+        f"HTTP {rec['plan_ms']:.1f} ms (CLI `job plan` {rec['plan_cli_ms']:.1f} ms); "
+        f"{rec['nodes_checked']} nodes, none overcommitted; peak live tasks "
+        f"{rec['peak']['task']}, logmons {rec['peak']['logmon']}, none left; heartbeat pump "
+        f"{json.dumps(rec['pump'], sort_keys=True)}")
+    held = rec["held"]
+    log(f"  launches {json.dumps(rec['launches'], sort_keys=True)}: K3 {rec['k3_launches']}, "
+        f"K4 {rec['k4_launches']}; every K3 launch held against plain ({held[0]} launches, "
+        f"{held[1]} evals, worst |dscore| {held[2]}, plain {held[3]:.1f} ms in all); kernel ms "
+        f"(B, P, ms) {' '.join(f'{b}/{pp}/{ms:.3f}' for b, pp, ms in rec['k3_ms'])}")
+    for i, k in enumerate(rec["k4"]):
+        log(f"  K4 launch {i}: kernel_ms={k[0]:.4f} plain_ms={k[1]:.2f} bound_ms={k[2]:.6f}")
+    log(f"agent process (`python -m nomad_tpu_torch.cli agent -dev`): HTTP ready "
+        f"{proc['http_ready_s']:.3f} s, first leader {proc['leader_s']:.3f} s after its start; "
+        f"`job run` {proc['job_run_ms']:.1f} ms, {AGENT_BATCH} allocs complete in "
+        f"{proc['complete_s']:.3f} s; /v1/metrics device dispatches {proc['dispatches']}, "
+        f"host fallbacks {proc['fallback_host']}; exit 0 {proc['stop_s']:.3f} s after SIGINT; "
+        f"phase wall {rec['phase_s']:.1f} s (in process {rec['in_process_s']:.1f} s)")
+
+
 def memory_line() -> str:
     """This process's resident set and the host's available memory."""
     def field(path, key):
@@ -3754,6 +4395,9 @@ def main() -> int:
     ap.add_argument("--client-only", action="store_true",
                     help="build the kernels and run the client phase only (prints no kernels "
                          "line and no result)")
+    ap.add_argument("--agent-only", action="store_true",
+                    help="build the kernels and run the agent phase only (prints no kernels "
+                         "line and no result)")
     args = ap.parse_args()
 
     if not (REPO / "nomad_tpu_torch" / "tpu" / "csrc").is_dir():
@@ -3810,6 +4454,11 @@ def main() -> int:
     if args.client_only:
         client_rec, _spy = phase_client(kernels, step, forced, parity, args.seed)
         log_client(client_rec, card)
+        log(f"card: {card}")
+        return 0
+    if args.agent_only:
+        agent_rec, _spy = phase_agent(kernels, step, forced, parity, args.seed)
+        log_agent(agent_rec, card)
         log(f"card: {card}")
         return 0
     churn = churn_phases()
@@ -3928,6 +4577,11 @@ def main() -> int:
     log_client(client_rec, card)
     del _client_spy
     stamp(f"client done; {memory_line()}")
+    release_heap()
+    agent_rec, _agent_spy = phase_agent(kernels, step, forced, parity, args.seed)
+    log_agent(agent_rec, card)
+    del _agent_spy
+    stamp(f"agent done; {memory_line()}")
 
     # the main paths' own kernel inputs, replayed: kernel vs plain, times, bound
     rows = {name: [] for name in ("place_scan", "place_scan_f32", "place_scan_has_pre",
@@ -4002,6 +4656,11 @@ def main() -> int:
         rows["place_scan"].append(h[4:8])
         worst = max(worst, h[8])
     rows["forced_eval"] += [k[:4] for k in client_rec["k4"]]
+    # the agent phase's (float arm): every launch held against plain in the
+    # phase, its last K3 launch replayed and timed, each K4 launch
+    rows["place_scan_f32"].append(agent_rec["k3_row"][:4])
+    worst_f = max(worst_f, agent_rec["held"][2], agent_rec["k3_row"][4])
+    rows["forced_eval_f32"] += [k[:4] for k in agent_rec["k4"]]
     stamp("replays done")
 
     mean = lambda v: sum(v) / len(v)  # noqa: E731
@@ -4016,12 +4675,14 @@ def main() -> int:
         "place_scan_f32": (servers["float"][0]["launches"]["place_scan_f32"]
                            + churn_f["place_scan_f32"]
                            + wire["launches_total"]["place_scan_f32"]
-                           + dev_rec["launches"]["place_scan_f32"]),
+                           + dev_rec["launches"]["place_scan_f32"]
+                           + agent_rec["launches"]["place_scan_f32"]),
         "place_scan_has_pre": (sys_rec["launches"]["place_scan_has_pre"]
                                + churn_i["place_scan_has_pre"]),
         "forced_eval": (sys_rec["launches"]["forced_eval"] + dev_rec["launches"]["forced_eval"]
                         + client_rec["launches"]["forced_eval"]),
-        "forced_eval_f32": servers["float"][0]["launches"]["forced_eval_f32"],
+        "forced_eval_f32": (servers["float"][0]["launches"]["forced_eval_f32"]
+                            + agent_rec["launches"]["forced_eval_f32"]),
         "chunk_scan": servers["chunked"][0]["launches"]["chunk_scan"],
     }
     replaces = {

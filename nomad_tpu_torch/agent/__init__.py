@@ -1,8 +1,13 @@
-"""HTTP agent (reference ``command/agent``).
+"""HTTP agent: embeds a server and/or client and serves the /v1 API.
 
-The PyTorch port has only ``jsonapi`` of this package so far: the
-struct <-> JSON mapping that ``structs.diff`` names its fields with. The
-reference's ``__init__`` imports ``Agent`` (``nomad_tpu/agent/__init__.py``),
-which pulls in the client and gossip; the port's exports nothing eagerly
-until those are ported.
+Fills the role of the reference's ``command/agent`` package (agent.go:90
+NewAgent, http.go:150 registerHandlers).
+
+Copied from ``nomad_tpu/agent/__init__.py`` into the PyTorch port, which
+imports nothing of ``nomad_tpu``. No change.
 """
+
+from .agent import Agent, AgentConfig
+from .http import HTTPServer
+
+__all__ = ["Agent", "AgentConfig", "HTTPServer"]

@@ -13,9 +13,8 @@ which imports nothing of ``nomad_tpu``. Changes: the logger is
 ``self.task_runners`` by name, so the lock and shared-state lint resolves
 the call to ``TaskRunner.restart`` (through a list it fell back to every
 ``restart`` of the port, the chaos harness's ``ServerProcess.restart``
-among them); the task-runner table's write carries no ``# race-ok`` (no
-thread of the port reaches the table concurrently until the Agent is
-ported, and the lint flags a suppression that suppresses nothing).
+among them); the task-runner table is written under ``_lock``, since
+the agent's alloc stats route reads it from HTTP threads.
 """
 from __future__ import annotations
 
@@ -106,7 +105,8 @@ class AllocRunner:
                 vault_fn=self.vault_fn,
                 vault_addr=self.vault_addr,
             )
-            self.task_runners[task.name] = tr
+            with self._lock:
+                self.task_runners[task.name] = tr
             handle = (recover_handles or {}).get(task.name)
             if handle is not None and not tr.recover(handle):
                 self.logger.info("task %s not recoverable; starting fresh", task.name)

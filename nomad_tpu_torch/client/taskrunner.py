@@ -14,9 +14,10 @@ which imports nothing of ``nomad_tpu``. Changes: the logger is
 ``nomad_tpu_torch.taskrunner.<task>``; a failed start stops its logmon
 with ``send_signal(SIGTERM)`` (``Popen.terminate``'s own call), which the
 lock and shared-state lint does not mistake for the chaos harness's
-``ServerProcess.terminate``; the device hook raises, failing the task,
-when the alloc assigns the task devices and the client runs no device
-plugin (the reference starts the task without them).
+``ServerProcess.terminate``. The device hook is the reference's: a task
+assigned devices on a client that runs no device plugin starts without
+them (upstream Nomad fails such a task; the reference's behaviour is
+kept).
 """
 from __future__ import annotations
 
@@ -522,17 +523,12 @@ class TaskRunner:
         """Device hook (task_runner_hooks.go device hook): reserve the
         alloc's assigned device instances, yielding env/mounts/devices.
         Failures surface as DriverError so the run loop's restart policy
-        handles them like any other start failure. A task assigned devices
-        on a client that runs no device plugin fails: it never starts
-        without them."""
-        if self.alloc.allocated_resources is None:
+        handles them like any other start failure."""
+        if self.device_manager is None or self.alloc.allocated_resources is None:
             return None
         task_res = self.alloc.allocated_resources.tasks.get(self.task.name)
         if task_res is None or not task_res.devices:
             return None
-        if self.device_manager is None:
-            raise DriverError("device reservation failed: the task was assigned devices "
-                              "and this client runs no device plugin")
         try:
             return self.device_manager.reserve(task_res.devices)
         except DriverError:

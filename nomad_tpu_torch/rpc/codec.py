@@ -23,8 +23,8 @@ of the reference's registry that the port has: its own structs
 (``structs.structs``), the client drivers' payload types
 (``client.drivers.base``'s) and the task directory (``TaskDir``), the
 device plugins' payload types (``plugins.base.PluginInfo`` and
-``plugins.device``'s) and the ACL structs (``structs.acl``).
-``AutopilotConfig`` comes with the module that defines it.
+``plugins.device``'s), the ACL structs (``structs.acl``) and the
+operator's ``AutopilotConfig`` (``server.autopilot``).
 """
 from __future__ import annotations
 
@@ -104,13 +104,17 @@ def _register_all_structs() -> None:
 
     _REGISTRY[TaskDir.__name__] = TaskDir
 
-    # ACL payloads (ride raft snapshots and RPC)
+    # ACL + operator payloads (ride raft snapshots and RPC)
     from ..structs import acl as acl_structs
 
     for name in dir(acl_structs):
         obj = getattr(acl_structs, name)
         if isinstance(obj, type) and dataclasses.is_dataclass(obj):
             _REGISTRY[obj.__name__] = obj
+
+    from ..server.autopilot import AutopilotConfig
+
+    _REGISTRY[AutopilotConfig.__name__] = AutopilotConfig
 
 
 def _to_wire(obj: Any) -> Any:

@@ -662,3 +662,77 @@ def test_gpu_task_runs_on_the_card_the_server_assigned(cuda, tmp_path):
     finally:
         client.shutdown()
         server.stop()
+
+
+def test_dev_agent_on_the_card_places_through_the_sdk(cuda):
+    """A dev ``Agent`` on CUDA (the float arm, the agent's defaults) with
+    24 mock nodes beside its own client's: a service job of 30 from HCL
+    through the port's ``api.Client`` places on the mock nodes, and every
+    K3 launch it made (the packed entry, captured) equals the plain
+    version on its own inputs, within ``parity``'s bound."""
+    import dataclasses
+    import time
+
+    import chip_smoke
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+    from nomad_tpu_torch.api import Client, Config
+
+    launches = []
+    orig = kernels.place_scan_batched_packed
+
+    def spy(packed, cs=None):
+        fresh = dataclasses.replace(packed, buf=packed.buf.clone())
+        out = orig(packed, cs)
+        launches.append((fresh, packed, *out))
+        return out
+
+    hcl = """
+job "card" {
+  datacenters = ["dc1"]
+  type = "service"
+  constraint {
+    attribute = "${node.class}"
+    value     = "linux-medium-pci"
+  }
+  group "web" {
+    count = 30
+    task "web" {
+      driver = "exec"
+      config { command = "/bin/date" }
+      resources {
+        cpu    = 100
+        memory = 64
+      }
+    }
+  }
+}
+"""
+    agent = Agent(AgentConfig(dev_mode=True, device="cuda", num_schedulers=1))
+    kernels.place_scan_batched_packed = spy
+    try:
+        agent.start()
+        for i in range(24):
+            n = mock.node()
+            n.name = f"card-{i}"
+            agent.server.register_node(n)
+        api = Client(Config(address=agent.http_addr))
+        api.jobs.register(api.jobs.parse_hcl(hcl))
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            allocs = agent.server.fsm.state.allocs_by_job("default", "card", True)
+            if len(allocs) == 30:
+                break
+            time.sleep(0.1)
+        assert agent.server.drain_evals(60.0)
+        allocs = agent.server.fsm.state.allocs_by_job("default", "card", True)
+        assert len(allocs) == 30
+        assert all(a.node_name.startswith("card-") for a in allocs)
+    finally:
+        kernels.place_scan_batched_packed = orig
+        agent.shutdown()
+    assert launches
+    held, evals, worst, _ = chip_smoke.hold_churn_launches(step, parity, launches, True,
+                                                          "dev agent")
+    assert held == len(launches) and evals >= 1
+    assert worst <= parity.FLOAT_SCORE_TOL

@@ -816,3 +816,120 @@ def test_port_threaded_code_passes_the_lock_and_state_lint():
     for module in ("server/wire_raft.py", "rpc/endpoints.py", "chaos/crash.py",
                    "chaos/crash_server.py", "watch/serve.py", "watch/blocking.py"):
         assert (REPO / "nomad_tpu_torch" / module).is_file(), module
+
+
+_BLOCKED_CLI = _BLOCKER + textwrap.dedent("""
+    import runpy
+    sys.argv = ["nomad_tpu_torch.cli"] + {argv!r}
+    code = 0
+    try:
+        runpy.run_module("nomad_tpu_torch.cli", run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        code = e.code or 0
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in
+                    ("jax", "jaxlib", "msgpack", "nomad_tpu", "cryptography")
+                    and sys.modules[m] is not None)
+    print("IMPORTED-FORBIDDEN", leaked, flush=True)
+    sys.exit(code)
+""")
+
+_ISOLATED_JOB = """
+job "iso" {
+  datacenters = ["dc1"]
+  type = "batch"
+  group "g" {
+    task "t" {
+      driver = "raw_exec"
+      config {
+        command = "/bin/sh"
+        args = ["-c", "echo isolated-$NOMAD_ALLOC_INDEX"]
+      }
+      resources {
+        cpu = 100
+        memory = 64
+      }
+    }
+  }
+}
+"""
+
+
+def _blocked_cli(argv, **kw):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return subprocess.Popen(
+        [sys.executable, "-c", _BLOCKED_CLI.format(repo=str(REPO), argv=list(argv))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        cwd=str(REPO), **kw)
+
+
+def test_agent_and_cli_run_a_job_with_jax_nomad_tpu_and_msgpack_blocked(tmp_path):
+    """``python -m nomad_tpu_torch.cli agent -dev -device cpu`` in a process
+    where importing jax, anything of nomad_tpu, or msgpack fails; the
+    port's CLI, blocked the same way, runs a raw_exec batch job on it to
+    ``complete``; SIGINT stops the agent with exit code 0. Neither process
+    imports ``cryptography`` (gossip is not encrypted)."""
+    import json
+    import signal
+    import socket
+    import time
+    import urllib.request
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    addr = f"http://127.0.0.1:{port}"
+    agent = _blocked_cli(["agent", "-dev", "-device", "cpu", "-http-port", str(port),
+                          "-data-dir", str(tmp_path / "data")])
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                with urllib.request.urlopen(addr + "/v1/nodes", timeout=2) as r:
+                    nodes = json.loads(r.read())
+                if nodes and nodes[0]["Status"] == "ready":
+                    break
+            except OSError:
+                pass
+            assert agent.poll() is None and time.monotonic() < deadline, "agent not ready"
+            time.sleep(0.2)
+        job = tmp_path / "iso.hcl"
+        job.write_text(_ISOLATED_JOB)
+        run = _blocked_cli(["job", "run", "-address", addr, str(job)])
+        out, _ = run.communicate(timeout=120)
+        assert run.returncode == 0, out
+        assert "IMPORTED-FORBIDDEN []" in out, out
+        deadline = time.monotonic() + 60
+        while True:
+            with urllib.request.urlopen(addr + "/v1/job/iso/allocations", timeout=5) as r:
+                allocs = json.loads(r.read())
+            if allocs and all(a["ClientStatus"] == "complete" for a in allocs):
+                break
+            assert time.monotonic() < deadline, allocs
+            time.sleep(0.2)
+    finally:
+        agent.send_signal(signal.SIGINT)
+        try:
+            out, _ = agent.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            agent.kill()
+            out, _ = agent.communicate()
+    assert agent.returncode == 0, out[-4000:]
+    assert "IMPORTED-FORBIDDEN []" in out, out[-4000:]
+
+
+def test_agent_on_cuda_without_cuda_raises(monkeypatch):
+    """``Agent(AgentConfig())`` asks for CUDA: without a card it raises
+    before it binds a port or starts a thread, rather than carrying on on
+    the CPU."""
+    import threading
+
+    from nomad_tpu_torch.agent import Agent, AgentConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = threading.active_count()
+    with pytest.raises(RuntimeError, match="cuda"):
+        Agent(AgentConfig(dev_mode=True))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Agent(AgentConfig(device="cuda", server_enabled=True))
+    assert threading.active_count() == before

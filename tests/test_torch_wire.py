@@ -850,8 +850,15 @@ class TestStagedMembership:
         wait_until(lambda: len(d.fsm.state.nodes()) == 1, msg="catch-up")
 
     def test_add_during_partition_heals_to_single_config(self, cluster):
+        """The partition is cut once every node follows one leader (a
+        victim picked during an election could be the next leader), and
+        it heals by undoing the cuts in reverse order: each cut wraps the
+        one before it, so undoing them in order would leave the victim's
+        outbound calls to two peers cut after the heal."""
         nodes = cluster(3)
-        wait_until(lambda: leader_of(nodes) is not None, msg="leader")
+        wait_until(lambda: leader_of(nodes) is not None and all(
+            n.raft.leader_id == leader_of(nodes).node_id for n in nodes),
+            msg="every node follows one leader")
         leader = leader_of(nodes)
         victim = next(n for n in nodes if n.raft.state != LEADER)
         others = [n for n in nodes if n is not victim]
@@ -877,7 +884,7 @@ class TestStagedMembership:
         assert victim.raft.add_peer_staged("n3", d.rpc.addr) is False
         assert "n3" not in victim.raft.peers
 
-        for restore in restores:
+        for restore in reversed(restores):
             restore()
         wait_until(
             lambda: set(victim.raft.peers) | {victim.node_id} == {"n0", "n1", "n2", "n3"}
