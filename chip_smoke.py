@@ -3,7 +3,7 @@
 kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N] [--churn-only | --wire-only | --devices-only |
-                                      --client-only | --agent-only]
+                                      --client-only | --agent-only | --mesh-only]
 
 Run from the root of a checkout on a machine with one CUDA card, nvcc
 and PyTorch built for CUDA. Phases, each of which fails the run:
@@ -237,6 +237,19 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    the blocking query's wake ms, the launches with their kernel ms, and
    the process's seconds to HTTP and to its first leader.
    ``--agent-only`` builds the kernels and runs only this phase.
+18. the mesh (after phase 12's kernel checks): the eval axis of
+   ``parallel.sharding``. Eight evals of the C1M mix (templates 0, 5,
+   10, 15, 20, 28, 33, 38 at their own 900-1,000 placements; encoded by
+   the port's Harness on the card at 5,000 C1M nodes), in the int arm and then the
+   float arm, through a ``DeviceBatcher`` over a mesh made of the one
+   card given twice (evals = 2; the server never arranges it so). It
+   fails unless the batch runs as two K3 launches (LAUNCHES rises by
+   2), one a shard of four on its own stream, the sharded results equal
+   the one-launch unsharded batch of the same evals (int bit for bit,
+   float by ``tpu/parity.py``), and shard 0 equals the plain version. It
+   prints each shard's launch ms alone, both at once on their streams
+   (host clock), the unsharded launch ms and K3's bound for the batch.
+   ``--mesh-only`` builds the kernels and runs only this phase.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -1697,6 +1710,238 @@ def phase_server(kernels, deterministic: bool, seed: int, chunked: bool = False)
     finally:
         phases.disable()
         server.stop()
+
+
+#: the mesh phase's 8 C1M-mix evals: bench.py c1m_mixed_jobs templates
+#: (0 and 5 with spread + affinity, 10-20 plain services, 28-38 batch),
+#: each at its own count (900-1,000 placements)
+MESH_TEMPLATES = (0, 5, 10, 15, 20, 28, 33, 38)
+
+
+def mesh_encodes(kernels, engine_mod, deterministic: bool, seed: int):
+    """The mesh phase's inputs: the MESH_TEMPLATES jobs placed one by one
+    through the port's Harness on the card at N_NODES C1M nodes (the int
+    arm when ``deterministic``), each eval's ``EncodedEval`` kept as the
+    engine encoded it."""
+    import numpy as np
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.structs import structs
+
+    rng = np.random.default_rng(seed)
+    h = Harness(device=DEVICE)
+    h.state.scheduler_set_config(
+        h.next_index(), structs.SchedulerConfiguration(scheduler_algorithm="tpu_binpack"))
+    for i in range(N_NODES):
+        n = mock.node()
+        n.id = f"{seed:08d}-0000-4000-8000-{i:012d}"
+        n.name = f"bench-{i}"
+        n.node_resources.cpu_shares = int(rng.choice([4000, 8000, 16000]))
+        n.node_resources.memory_mb = int(rng.choice([8192, 16384, 32768]))
+        n.compute_class()
+        h.state.upsert_node(h.next_index(), n)
+    templates = c1m_templates()
+    encs = []
+    cls = engine_mod.TorchPlacementEngine
+    orig = cls.run_scan_single
+
+    def keep(engine, enc):
+        encs.append(enc)
+        return orig(engine, enc)
+
+    cls.run_scan_single = keep
+    try:
+        for t in MESH_TEMPLATES:
+            tpl = templates[t]
+            job = c1m_job(mock, structs, tpl, f"mesh-{t}", tpl["count"])
+            h.state.upsert_job(h.next_index(), job)
+            ev = structs.Evaluation(priority=job.priority, type=tpl["kind"],
+                                    triggered_by=structs.EVAL_TRIGGER_JOB_REGISTER,
+                                    job_id=job.id, namespace=job.namespace)
+            n_plans = len(h.plans)
+            h.process(tpl["kind"], ev, deterministic=deterministic)
+            placed = sum(len(v) for v in h.plans[n_plans].node_allocation.values())
+            if placed != tpl["count"]:
+                raise AssertionError(f"mesh: job mesh-{t} placed {placed} of {tpl['count']}")
+    finally:
+        cls.run_scan_single = orig
+    if len(encs) != len(MESH_TEMPLATES):
+        raise AssertionError(f"mesh: {len(encs)} device evals, want {len(MESH_TEMPLATES)}")
+    return encs
+
+
+def streams_ms(kernels, freshes, streams, reps: int = 3) -> float:
+    """Host ms, between two synchronizes, of packed launches each on its
+    own stream at once (fresh copies of their inputs made before the
+    timing); the median of ``reps`` after one warm-up."""
+    import dataclasses
+
+    import torch
+
+    times = []
+    for _ in range(reps + 1):
+        bufs = [dataclasses.replace(f, buf=f.buf.clone()) for f in freshes]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for buf, st in zip(bufs, streams):
+            with torch.cuda.stream(st):
+                kernels.place_scan_batched_packed(buf)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times = sorted(times[1:])
+    return times[len(times) // 2]
+
+
+def phase_mesh(kernels, step, parity, seed: int):
+    """The eval axis on the card: 8 C1M-mix evals at N_NODES through a
+    ``DeviceBatcher`` over a mesh made of the one card given twice
+    (evals = 2; only this phase arranges it so), in the int arm and then
+    the float arm. Each of the two shards must run as its own K3 launch
+    on its own stream (LAUNCHES rises by 2 for the batch), the sharded
+    result must equal the one-launch unsharded batch of the same evals
+    (int bit for bit, float by ``tpu/parity.py``) and shard 0 is held
+    against the plain version. Returns a record per arm."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.parallel import make_mesh
+    from nomad_tpu_torch.tpu import batcher as batcher_mod
+    from nomad_tpu_torch.tpu import engine as engine_mod
+    from nomad_tpu_torch.tpu.convert import HostSlab, from_device_packed
+
+    dev = torch.device("cuda", torch.cuda.current_device()) if DEVICE == "cuda" \
+        else torch.device(DEVICE)
+    recs = {}
+    for deterministic in (True, False):
+        arm = "int" if deterministic else "float"
+        kernel = "place_scan" if deterministic else "place_scan_f32"
+        t_arm = time.perf_counter()
+        encs = mesh_encodes(kernels, engine_mod, deterministic, seed)
+        b = len(encs)
+        dims = batcher_mod.batch_dims(encs)
+
+        # the unsharded batch: one K3 launch of all 8 evals
+        packed = batcher_mod.pack_batch(encs, dims, b, dev, HostSlab(pin=dev.type == "cuda"))
+        whole_fresh = dataclasses.replace(packed, buf=packed.buf.clone())
+        whole = from_device_packed(*kernels.place_scan_batched_packed(packed))
+
+        # the sharded batch through the batcher's main path
+        mesh = make_mesh(2, eval_parallel=2, devices=[dev, dev])
+        shards, streams = [], []
+        orig = kernels.place_scan_batched_packed
+
+        def capture(pk, cs=None):
+            fresh = dataclasses.replace(pk, buf=pk.buf.clone())
+            out = orig(pk, cs)
+            shards.append((fresh, pk, *out))
+            if dev.type == "cuda":
+                streams.append(torch.cuda.current_stream(dev))
+            return out
+
+        bat = batcher_mod.DeviceBatcher(max_batch=b, window_ms=60_000.0, device=dev, mesh=mesh)
+        got, errors = [None] * b, [None] * b
+
+        def submit(i):
+            try:
+                got[i] = bat.run(encs[i])
+            except Exception as e:  # noqa: BLE001 — every error fails the phase below
+                errors[i] = e
+
+        threads = [threading.Thread(target=submit, args=(i,)) for i in range(b)]
+        kernels.reset_launch_counts()
+        kernels.place_scan_batched_packed = capture
+        try:
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            kernels.place_scan_batched_packed = orig
+            bat.stop()
+        launches = dict(kernels.LAUNCHES)
+        stats = bat.stats_snapshot()
+        if any(e is not None for e in errors) or any(g is None for g in got):
+            raise AssertionError(f"mesh {arm}: run() errors {errors}")
+        if launches[kernel] != 2 or sum(launches.values()) - launches["place_scan_has_pre"] != 2:
+            raise AssertionError(f"mesh {arm}: launches {launches}, want 2 of {kernel}")
+        if stats["dispatches"] != 1 or stats["device_dispatches"] != {str(dev): 2}:
+            raise AssertionError(f"mesh {arm}: batcher stats {stats}")
+        if len(shards) != 2 or [s[0].dims["B"] for s in shards] != [b // 2, b // 2]:
+            raise AssertionError(f"mesh {arm}: shard launches {[s[0].dims for s in shards]}")
+        if dev.type == "cuda":
+            ids = {st.cuda_stream for st in streams}
+            if len(ids) != 2 or torch.cuda.default_stream(dev).cuda_stream in ids:
+                raise AssertionError(f"mesh {arm}: shard streams {ids}")
+
+        # sharded against unsharded, eval by eval
+        exact, worst = True, 0.0
+        for i, (enc, g) in enumerate(zip(encs, got)):
+            ref = tuple(a[i, :enc.p] for a in whole)
+            if deterministic:
+                for name, x, y in zip(("chosen", "scores", "pulls", "skipped", "evict"), ref, g):
+                    if x.dtype != y.dtype or not np.array_equal(x, y):
+                        raise AssertionError(f"mesh int eval {i}: sharded {name} differs "
+                                             "from the unsharded batch")
+            else:
+                _div, diff, ex = parity.check_float_scan(
+                    ((), ref[:4]), ((), tuple(g[:4])), enc.xs[0][:enc.p],
+                    f"mesh float eval {i}: sharded against unsharded")
+                exact, worst = exact and ex, max(worst, diff)
+
+        # shard 0 against the plain version (also timed alone), shard 1's
+        # time alone, both at once on their streams, the unsharded launch
+        k_ms, p_ms, b_ms, b_by, err = replay_batched(
+            kernels, step, parity, shards[0], f"mesh {arm} shard 0", not deterministic)
+        shard1_ms = packed_scan_ms(kernels, shards[1][0])
+        whole_ms = packed_scan_ms(kernels, whole_fresh)
+        both_ms = whole_host_ms = None
+        if dev.type == "cuda":
+            # the same host clock for both: two shards on two streams,
+            # the unsharded batch on one
+            both_ms = streams_ms(kernels, [s[0] for s in shards], streams)
+            whole_host_ms = streams_ms(kernels, [whole_fresh], [torch.cuda.Stream(dev)])
+        sb, cb, xb = whole_fresh.parts()
+        nbytes, ops = kernels.place_scan_batched_work(sb, cb, xb, torch.from_numpy(whole[3]))
+        whole_b_ms, whole_b_by = bound(nbytes, ops)
+        recs[arm] = {
+            "arm": arm, "kernel": kernel, "launches": launches[kernel], "evals": b,
+            "n_pad": dims["n_pad"], "p_pad": dims["p_pad"], "wall_ms": wall_ms,
+            "batcher_sections": bat.section_profile(), "exact": exact, "worst": worst,
+            "shard_ms": [k_ms, shard1_ms], "both_ms": both_ms, "whole_ms": whole_ms,
+            "whole_host_ms": whole_host_ms, "whole_cs": plan_cs(kernels, sb, cb, xb, True),
+            "shard_cs": plan_cs(kernels, *shards[0][0].parts(), True),
+            "bound_ms": whole_b_ms, "bound_by": whole_b_by,
+            "row": (k_ms, p_ms, b_ms, b_by), "err": err,
+            "phase_s": time.perf_counter() - t_arm,
+        }
+    return recs
+
+
+def log_mesh(recs, card) -> None:
+    for rec in recs.values():
+        log(f"mesh {rec['arm']}: {rec['evals']} C1M-mix evals (n_pad {rec['n_pad']}, "
+            f"P {rec['p_pad']}) over a (2, 1) mesh of the one card: {rec['launches']} "
+            f"{rec['kernel']} launches, one a shard on its own stream, sharded equal to the "
+            f"unsharded batch "
+            f"{'bit for bit' if rec['exact'] else 'within the parity bound'} "
+            f"(max |dscore| {rec['worst']}); shard 0 equal to plain")
+        both, whole_host = ("not run" if v is None else f"{v:.3f}"
+                            for v in (rec["both_ms"], rec["whole_host_ms"]))
+        log(f"  shard launch ms {rec['shard_ms'][0]:.3f} / {rec['shard_ms'][1]:.3f} (B = "
+            f"{rec['evals'] // 2} each, alone, CS {rec['shard_cs']}); unsharded launch ms "
+            f"{rec['whole_ms']:.3f} (B = {rec['evals']}, CS {rec['whole_cs']}); host clock: "
+            f"both shards at once on their two streams {both}, the unsharded launch "
+            f"{whole_host}; K3 bound for the batch {rec['bound_ms']:.6f} ms "
+            f"({rec['bound_by']}); the batcher's run() of the batch {rec['wall_ms']:.1f} ms; "
+            f"phase {rec['phase_s']:.1f} s; on {card}")
+        log(f"  batch sections (host ms: median, sum) "
+            f"{json.dumps(rec['batcher_sections'], sort_keys=True)}")
 
 
 def c1m_jobs(pkg_mock, structs):
@@ -4398,6 +4643,9 @@ def main() -> int:
     ap.add_argument("--agent-only", action="store_true",
                     help="build the kernels and run the agent phase only (prints no kernels "
                          "line and no result)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build the kernels and run the mesh phase only (prints no kernels "
+                         "line and no result)")
     args = ap.parse_args()
 
     if not (REPO / "nomad_tpu_torch" / "tpu" / "csrc").is_dir():
@@ -4461,6 +4709,10 @@ def main() -> int:
         log_agent(agent_rec, card)
         log(f"card: {card}")
         return 0
+    if args.mesh_only:
+        log_mesh(phase_mesh(kernels, step, parity, args.seed), card)
+        log(f"card: {card}")
+        return 0
     churn = churn_phases()
     if args.churn_only:
         log(f"card: {card}")
@@ -4480,6 +4732,9 @@ def main() -> int:
     stamp("K4, has_pre and K8 checks done")
     worst_k5, k5_recs = phase_chunk_variants(kernels, chunk, convert, engine, parity)
     stamp("K5 checks done")
+    mesh = phase_mesh(kernels, step, parity, args.seed)
+    log_mesh(mesh, card)
+    stamp("mesh done")
 
     dev_records, captured, launches = phase_slice(kernels, args.seed)
     for rec in dev_records:
@@ -4661,6 +4916,11 @@ def main() -> int:
     rows["place_scan_f32"].append(agent_rec["k3_row"][:4])
     worst_f = max(worst_f, agent_rec["held"][2], agent_rec["k3_row"][4])
     rows["forced_eval_f32"] += [k[:4] for k in agent_rec["k4"]]
+    # the mesh phase's shard 0 in each arm, held against plain in the phase
+    rows["place_scan"].append(mesh["int"]["row"])
+    rows["place_scan_f32"].append(mesh["float"]["row"])
+    worst = max(worst, mesh["int"]["err"])
+    worst_f = max(worst_f, mesh["float"]["err"])
     stamp("replays done")
 
     mean = lambda v: sum(v) / len(v)  # noqa: E731
@@ -4671,12 +4931,14 @@ def main() -> int:
                        - sys_rec["launches"]["place_scan_has_pre"]
                        + churn_i["place_scan"] - churn_i["place_scan_has_pre"]
                        + dev_rec["launches"]["place_scan"]
-                       + client_rec["launches"]["place_scan"]),
+                       + client_rec["launches"]["place_scan"]
+                       + mesh["int"]["launches"]),
         "place_scan_f32": (servers["float"][0]["launches"]["place_scan_f32"]
                            + churn_f["place_scan_f32"]
                            + wire["launches_total"]["place_scan_f32"]
                            + dev_rec["launches"]["place_scan_f32"]
-                           + agent_rec["launches"]["place_scan_f32"]),
+                           + agent_rec["launches"]["place_scan_f32"]
+                           + mesh["float"]["launches"]),
         "place_scan_has_pre": (sys_rec["launches"]["place_scan_has_pre"]
                                + churn_i["place_scan_has_pre"]),
         "forced_eval": (sys_rec["launches"]["forced_eval"] + dev_rec["launches"]["forced_eval"]

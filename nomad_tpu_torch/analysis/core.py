@@ -9,8 +9,7 @@ yields findings. Line-based facts (comments) come from ``module.lines``
 since the AST drops them.
 
 Copied from ``nomad_tpu/analysis/core.py`` into the PyTorch port, which
-imports nothing of ``nomad_tpu``; ``default_checkers`` names only the
-three rules ported so far.
+imports nothing of ``nomad_tpu``.
 """
 from __future__ import annotations
 
@@ -145,22 +144,38 @@ def iter_py_files(paths: Sequence[str]) -> List[str]:
 
 
 def default_checkers() -> list:
-    """The port's rules: lock-order, condition-discipline and
-    shared-state-discipline. The reference's other ten rule modules
-    (jit-purity, dtype, FSM determinism, trace spans, pipeline stages,
-    fault injection, subprocess, metrics, RPC telemetry, blocking reads)
-    and its ``__main__`` are still to port."""
+    """All thirteen rules, in the reference's order."""
+    from .blocking_read_discipline import BlockingReadDisciplineChecker
     from .condition_discipline import ConditionDisciplineChecker
+    from .dtype_discipline import DtypeDisciplineChecker
+    from .fault_injection_discipline import FaultInjectionDisciplineChecker
+    from .fsm_determinism import FsmDeterminismChecker
+    from .jit_purity import JitPurityChecker
     from .lock_order import LockOrderChecker, WholeProgramLockAnalysis
+    from .metrics_discipline import MetricsDisciplineChecker
+    from .pipeline_stage_discipline import PipelineStageDisciplineChecker
+    from .rpc_telemetry_discipline import RpcTelemetryDisciplineChecker
     from .shared_state import SharedStateDisciplineChecker
+    from .subprocess_discipline import SubprocessDisciplineChecker
+    from .trace_span_discipline import TraceSpanDisciplineChecker
 
     # ONE interprocedural call-graph build, shared by the three
     # concurrency rules (add_module is idempotent, analyze() memoizes)
     shared_analysis = WholeProgramLockAnalysis()
     return [
+        JitPurityChecker(),
+        DtypeDisciplineChecker(),
+        FsmDeterminismChecker(),
+        TraceSpanDisciplineChecker(),
+        PipelineStageDisciplineChecker(),
+        FaultInjectionDisciplineChecker(),
+        SubprocessDisciplineChecker(),
+        MetricsDisciplineChecker(),
         LockOrderChecker(analysis=shared_analysis),
         ConditionDisciplineChecker(analysis=shared_analysis),
         SharedStateDisciplineChecker(analysis=shared_analysis),
+        RpcTelemetryDisciplineChecker(),
+        BlockingReadDisciplineChecker(),
     ]
 
 

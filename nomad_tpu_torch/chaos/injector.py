@@ -56,6 +56,7 @@ import threading
 import time
 from random import Random
 from typing import Dict, Optional
+from ..utils.faults import InjectedFault
 from ..utils.lock_witness import witness_lock
 
 POINTS = (
@@ -71,7 +72,7 @@ POINTS = (
 MODES = ("fail", "delay")
 
 
-class ChaosFault(RuntimeError):
+class ChaosFault(InjectedFault):
     """A deliberately injected fault (never raised unless a point is armed)."""
 
 

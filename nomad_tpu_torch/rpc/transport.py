@@ -294,6 +294,34 @@ def _recv_frame(sock: socket.socket, peer: str = "", method: str = "") -> bytes:
     return _read_exact(sock, length, peer, f"{length}B {what}")
 
 
+def request_envelope(seq: int, method: str, args: tuple, *,
+                     no_forward: bool = False, region: Optional[str] = None,
+                     stale: bool = False) -> Dict[str, Any]:
+    """The request envelope ``RPCClient.call`` sends: ``seq``, ``method``,
+    ``body`` and the optional flags, with the caller's active trace
+    context (``xtrace.inject()``) under ``TRACE_KEY`` so the server's
+    handler span joins the caller's trace."""
+    req: Dict[str, Any] = {"seq": seq, "method": method, "body": tuple(args)}
+    if no_forward:
+        req["no_forward"] = True
+    if region:
+        req["region"] = region
+    if stale:
+        req["stale"] = True
+    tctx = xtrace.inject()
+    if tctx is not None:
+        req[TRACE_KEY] = tctx
+    return req
+
+
+def request_frame(seq: int, method: str, *args: Any,
+                  stale: bool = False) -> bytes:
+    """One whole length-prefixed request frame (``request_envelope``,
+    encoded), for a caller that writes its own non-blocking socket."""
+    payload = encode(request_envelope(seq, method, args, stale=stale))
+    return _LEN.pack(len(payload)) + payload
+
+
 class RPCServer:
     """Dispatches "Noun.Verb" methods to registered handlers."""
 
@@ -603,16 +631,9 @@ class RPCClient:
                          attrs={"method": method, "peer": peer}) as attrs:
             with self._lock:
                 self._seq += 1
-                req = {"seq": self._seq, "method": method, "body": tuple(args)}
-                if no_forward:
-                    req["no_forward"] = True
-                if region:
-                    req["region"] = region
-                if stale:
-                    req["stale"] = True
-                tctx = xtrace.inject()
-                if tctx is not None:
-                    req[TRACE_KEY] = tctx
+                req = request_envelope(self._seq, method, args,
+                                       no_forward=no_forward, region=region,
+                                       stale=stale)
                 payload = encode(req)
                 attrs["req_bytes"] = len(payload)
                 try:

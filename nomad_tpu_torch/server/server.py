@@ -12,9 +12,12 @@ into the PyTorch port, which imports nothing of ``nomad_tpu``. Changes:
 ``ServerConfig.device`` (default ``"cuda"``) is the torch device
 the placement engine, the workers' schedulers and the ``DeviceBatcher``
 run on, and asking for CUDA where there is none raises at construction
-(pass ``"cpu"`` for the plain PyTorch path); the JAX device mesh is not
-ported: ``device_mesh=True`` with more than one visible CUDA device
-raises ``NotImplementedError`` (one device runs unsharded, as there);
+(pass ``"cpu"`` for the plain PyTorch path); ``device_mesh=True`` with
+more than one visible CUDA device shards each batch's evals over them
+(``parallel.sharding``; the reference's ``except Exception`` that ran
+unsharded on any error is gone, and a grid with ``nodes > 1`` raises
+``NotImplementedError``), while a CPU server or a single card runs
+unsharded, as a JAX server on one device does;
 the leader drains the broker's failed queue every
 ``FAILED_EVAL_REAP_INTERVAL_S`` (1 s) instead of on the 60 s unblock
 cadence, and on the same tick cancels the evals the broker superseded
@@ -195,8 +198,9 @@ class ServerConfig:
     # tests/test_device_batcher.py::test_trickle_arrivals_latency.
     device_batch_idle_ms: float = 3.0
     # shard the eval batch over an ("evals", "nodes") device mesh when
-    # multiple accelerator devices are visible (multi-chip; not ported:
-    # raises with more than one CUDA device)
+    # several CUDA devices are visible (parallel.sharding.make_mesh with
+    # eval_parallel = min(device_batch, devices); a grid with nodes > 1
+    # raises, the node axis not being ported)
     device_mesh: bool = False
     # torch device of the placement engine, the schedulers and the
     # device batcher: CUDA unless the caller asks for the CPU
@@ -340,18 +344,26 @@ class Server:
         if self.config.device_batch > 1:
             from ..tpu.batcher import DeviceBatcher
 
-            if self.config.device_mesh and self.config.device != "cpu":
+            mesh = None
+            if self.config.device_mesh:
                 import torch
 
-                if torch.cuda.device_count() > 1:
-                    raise NotImplementedError(
-                        "device_mesh over several CUDA devices is not ported "
-                        "(ROADMAP.md Queue 1, item 7: multi-GPU)")
+                from ..parallel import sharding
+
+                devices = sharding.visible_devices(torch.device(self.config.device).type)
+                n_dev = len(devices)
+                if n_dev > 1:
+                    mesh = sharding.make_mesh(
+                        n_dev,
+                        eval_parallel=min(self.config.device_batch, n_dev),
+                        devices=devices,
+                    )
             self.device_batcher = DeviceBatcher(
                 max_batch=self.config.device_batch,
                 window_ms=self.config.device_batch_window_ms,
                 idle_ms=getattr(self.config, "device_batch_idle_ms", 0.0),
                 device=self.config.device,
+                mesh=mesh,
             )
 
         # Asynchronous eval-lifecycle pipeline (nomad_tpu/pipeline):

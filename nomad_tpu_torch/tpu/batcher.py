@@ -37,7 +37,14 @@ Port of ``nomad_tpu/tpu/batcher.py``: ``pad_encoded``,
     is placed on the host instead;
   * the bucket-padding copies of a batch have every task group
     pre-failed, so each of their steps is skipped;
-  * no device mesh (a later slice).
+  * a device mesh (``parallel.sharding.make_mesh``) shards the eval
+    axis only: ``DeviceBatcher(mesh=...)`` rounds ``b_pad`` up to a
+    multiple of the mesh's ``evals``, as the reference does, and
+    ``ShardLauncher`` runs each of the ``evals`` contiguous groups as its
+    own K3 launch on its own slab and stream of its device (without a
+    mesh, a batch is the one shard of a one-entry mesh); a mesh with
+    ``nodes > 1`` raises ``NotImplementedError`` when the batcher is
+    built (ROADMAP.md Queue 1, the node axis).
 
 The chunked tier's evals do not come here: the engine runs them one by
 one through ``kernels.chunk_scan`` (``engine.run_chunked``), which
@@ -58,6 +65,7 @@ import numpy as np
 import torch
 
 from ..chaos.injector import fire as chaos_fire
+from ..parallel.sharding import make_mesh
 from ..utils.lock_witness import witness_lock
 from ..utils.race_witness import tracked_dict
 from . import kernels
@@ -474,6 +482,101 @@ def pack_batch(encs: List[EncodedEval], dims: Dict[str, object], b_pad: int,
     return kernels.PackedScan(buf, layout, m)
 
 
+class ShardLauncher:
+    """The eval axis of a ``parallel.sharding.Mesh``: a batch of ``b_pad``
+    slots (a multiple of the mesh's ``evals``) splits into ``evals``
+    contiguous groups of ``b_pad / evals``. Each group is packed into its
+    own host slab (pinned on CUDA; ``pack_batch``) and run as its own K3
+    launch (``kernels.place_scan_batched_packed``, whose launch plan is
+    made for the group's own B) on its own stream of its device; a group
+    with no real eval is not launched. Every launched shard is
+    synchronized and the outputs come back concatenated in eval order,
+    the filler evals dropped. A shard's error propagates: nothing runs
+    unsharded, on the host or through the plain version instead (on the
+    CPU the plain version is what a CPU shard runs). A ``DeviceBatcher``
+    given no mesh runs every batch through a one-entry mesh of its
+    device: one shard, one launch.
+
+    A mesh with ``nodes > 1`` raises ``NotImplementedError``: splitting
+    one eval's node tables over devices is not ported."""
+
+    def __init__(self, mesh) -> None:
+        ep, nn = int(mesh.shape["evals"]), int(mesh.shape["nodes"])
+        if nn > 1:
+            raise NotImplementedError(
+                f"a device mesh with nodes={nn} > 1 splits one eval's node "
+                "tables over devices, which is not ported (ROADMAP.md "
+                "Queue 1, the node axis); give eval_parallel = the device "
+                "count for an (n, 1) mesh")
+        # a shard is a run of whole evals: every slab entry's eval axis
+        # leads (parallel.sharding.batched_scan_shardings)
+        self.ep = ep
+        self.devices = [resolve_device(d) for d in mesh.devices[:, 0]]
+        self._slabs = [HostSlab(pin=d.type == "cuda") for d in self.devices]
+        self._streams: List[Optional[torch.cuda.Stream]] = [None] * ep
+
+    def round_batch(self, b: int) -> int:
+        """``b`` rounded up to a multiple of the eval axis."""
+        return -(-b // self.ep) * self.ep
+
+    def _stream(self, k: int):
+        """Shard ``k``'s own CUDA stream made current (created at its
+        first launch); a no-op on the CPU."""
+        dev = self.devices[k]
+        if dev.type != "cuda":
+            return contextlib.nullcontext()
+        if self._streams[k] is None:
+            self._streams[k] = torch.cuda.Stream(device=dev)
+        return torch.cuda.stream(self._streams[k])
+
+    def __call__(self, encs: List[EncodedEval], dims: Dict[str, object], b_pad: int,
+                 times: Optional[Dict[str, float]] = None, launched: Optional[list] = None):
+        """Run ``encs`` (one dtype, ``dims`` from ``batch_dims``) as
+        ``b_pad`` slots over the shards; returns ``(chosen, scores, pulls,
+        skipped, evict)``, each ``[len(encs), P_pad, ...]``. ``times``
+        gains the host ms by ``BATCH_SECTIONS``; ``launched`` (a list)
+        gains the device of each shard launched."""
+        if b_pad % self.ep or b_pad < len(encs):
+            raise ValueError(f"ShardLauncher: b_pad {b_pad} is not a multiple of "
+                             f"{self.ep} holding {len(encs)} evals")
+        from ..utils import phases as _phases
+
+        if any(d.type == "cuda" for d in self.devices):
+            kernels.build_all()
+        times = {} if times is None else times
+        per = b_pad // self.ep
+        launch_ms = 0.0
+        runs = []
+        for k in range(self.ep):
+            group = encs[k * per:(k + 1) * per]
+            if not group:
+                break
+            with self._stream(k):
+                # the slab write (pad_stack) and its one copy in (device)
+                packed = pack_batch(group, dims, per, self.devices[k], self._slabs[k], times)
+                with _phases.track("device"):
+                    t0 = time.perf_counter()
+                    runs.append((k, kernels.place_scan_batched_packed(packed)))
+                    launch_ms += (time.perf_counter() - t0) * 1e3
+            if launched is not None:
+                launched.append(self.devices[k])
+        with _phases.track("device"):
+            t1 = time.perf_counter()
+            for k, _ in runs:
+                if self.devices[k].type == "cuda":
+                    self._streams[k].synchronize()
+            t2 = time.perf_counter()
+            outs = []
+            for k, (out, out_layout) in runs:
+                with self._stream(k):
+                    outs.append(from_device_packed(out, out_layout))
+            t3 = time.perf_counter()
+        times["launch"] = launch_ms + (t2 - t1) * 1e3
+        times["d2h"] = (t3 - t2) * 1e3
+        b = len(encs)
+        return tuple(np.concatenate([o[i] for o in outs])[:b] for i in range(5))
+
+
 class _Request:
     __slots__ = ("enc", "event", "result", "error", "t_enqueue")
 
@@ -496,8 +599,14 @@ class DeviceBatcher:
 
     def __init__(self, max_batch: int = 8, window_ms: float = 1.0,
                  idle_ms: float = 0.0, queue_max: int = 4096,
-                 device: DeviceLike = "cuda") -> None:
+                 device: DeviceLike = "cuda", mesh=None) -> None:
         self.device = resolve_device(device)
+        # eval-sharded batches over a parallel.sharding.Mesh (raises for
+        # nodes > 1); None runs each batch as one launch on ``device``,
+        # the one-entry mesh's one shard
+        self.mesh = mesh
+        self._shards = ShardLauncher(
+            mesh if mesh is not None else make_mesh(1, devices=[self.device]))
         self.max_batch = max(1, int(max_batch))
         self.window_s = max(0.0, float(window_ms)) / 1000.0
         # Adaptive gather: with idle_ms > 0 the batch keeps growing while
@@ -537,6 +646,9 @@ class DeviceBatcher:
             "compute_ms_total": 0.0,
             "transfer_ms_total": 0.0,
             "d2h_bytes_total": 0,
+            # K3 launches by device (a sharded batch launches once per
+            # shard that holds a real eval)
+            "device_dispatches": {},
         })
         # Demand-aware gather (guarded-by: _lock): workers announce an
         # encode-in-flight destined for this batcher via expect(); the
@@ -545,10 +657,6 @@ class DeviceBatcher:
         # lazily on the first expect().
         self._expected = 0
         self._demand_aware = False
-        # the dispatcher thread's alone: the host slab batches are packed
-        # into, and its CUDA stream
-        self._slab = HostSlab(pin=self.device.type == "cuda")
-        self._stream = None
         # host ms of each batch by section (section_profile)
         self._sections: "deque[Dict[str, float]]" = deque(maxlen=4096)  # guarded-by: _lock
 
@@ -595,7 +703,9 @@ class DeviceBatcher:
     def stats_snapshot(self) -> Dict[str, object]:
         """A copy of ``stats`` taken under the lock its writers hold."""
         with self._lock:
-            return dict(self.stats)
+            snap = dict(self.stats)
+            snap["device_dispatches"] = dict(snap["device_dispatches"])
+            return snap
 
     def wait_warm(self, timeout: Optional[float] = None) -> None:
         """Return once outstanding bucket warming has finished: at once,
@@ -723,7 +833,7 @@ class DeviceBatcher:
             out.append(mid)
         if self.max_batch not in out:
             out.append(self.max_batch)
-        return out
+        return sorted({self._shards.round_batch(b) for b in out})
 
     def dispatch_profile(self) -> Dict[str, object]:
         """Per-dispatch timing split: where does a dispatch's wall time
@@ -761,16 +871,6 @@ class DeviceBatcher:
             "note": note,
         }
 
-    def _own_stream(self):
-        """The dispatcher's own CUDA stream made current (created at its
-        first batch), so that a batch's copies and launch never queue
-        behind other threads' work; a no-op on the CPU."""
-        if self.device.type != "cuda":
-            return contextlib.nullcontext()
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device=self.device)
-        return torch.cuda.stream(self._stream)
-
     def section_profile(self) -> Dict[str, object]:
         """Host ms of the recorded batches (the last 4,096) by section
         (``BATCH_SECTIONS``: the slab write, the copy in, the launch with
@@ -786,7 +886,6 @@ class DeviceBatcher:
 
     def _run_batch(self, batch: List[_Request]) -> None:
         from ..utils import metrics
-        from ..utils import phases as _phases
 
         t_start = metrics.now()
         encs = [r.enc for r in batch]
@@ -795,22 +894,10 @@ class DeviceBatcher:
         b = len(encs)
         # Three batch buckets — 1, max/4, max.
         b_pad = min(x for x in self._buckets() if x >= b)
-        if self.device.type == "cuda":
-            kernels.build_all()
         times: Dict[str, float] = {}
-        with self._own_stream():
-            # the slab write (pad_stack) and its one copy in (device)
-            packed = pack_batch(encs, dims, b_pad, self.device, self._slab, times)
-            with _phases.track("device"):
-                t0 = time.perf_counter()
-                out, out_layout = kernels.place_scan_batched_packed(packed)
-                if self.device.type == "cuda":
-                    torch.cuda.current_stream(self.device).synchronize()
-                t1 = time.perf_counter()
-                chosen, scores, pulls, skipped, evict = from_device_packed(out, out_layout)
-                t2 = time.perf_counter()
-        times["launch"] = (t1 - t0) * 1e3
-        times["d2h"] = (t2 - t1) * 1e3
+        launched: List[torch.device] = []
+        # one K3 launch per shard, each on its own slab and stream
+        chosen, scores, pulls, skipped, evict = self._shards(encs, dims, b_pad, times, launched)
         compute_ms = times["h2d"] + times["launch"]
         metrics.add_sample("nomad.device_batcher.pad_stack", times["slab"])
         metrics.add_sample("nomad.device_batcher.dispatch", compute_ms + times["d2h"])
@@ -830,6 +917,9 @@ class DeviceBatcher:
             self.stats["compute_ms_total"] += compute_ms
             self.stats["transfer_ms_total"] += times["d2h"]
             self.stats["d2h_bytes_total"] += d2h_bytes
+            per_device = self.stats["device_dispatches"]
+            for dev in launched:
+                per_device[str(dev)] = per_device.get(str(dev), 0) + 1
             self._sections.append(times)
             for req in batch:
                 # t_start and t_enqueue share the monotonic clock

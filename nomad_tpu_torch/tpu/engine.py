@@ -49,9 +49,11 @@ it raises out of the scheduler's ``process()`` (the server's worker then
 nacks the eval back to the broker); nothing is placed on the host
 instead. That holds for the chunk kernel and for the sampler's
 reference scan too. Only a fault injected at the ``device_dispatch``
-chaos point (``ChaosFault``) degrades the eval to the host path, as the
-reference degrades any dispatch error (engine.py:1516-1526, counter
-``nomad.tpu_engine.dispatch_fallback_host``).
+chaos point degrades the eval to the host path, as the reference
+degrades any dispatch error (engine.py:1516-1526, counter
+``nomad.tpu_engine.dispatch_fallback_host``). The engine knows that
+fault by its type, ``utils.faults.InjectedFault`` (``ChaosFault``'s
+base), and imports nothing of ``chaos/``.
 """
 from __future__ import annotations
 
@@ -65,7 +67,6 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..chaos import ChaosFault
 from ..structs.network import NetworkIndex
 from ..structs.structs import (
     ALLOC_CLIENT_PENDING,
@@ -75,6 +76,7 @@ from ..structs.structs import (
     AllocatedTaskResources,
     Allocation,
 )
+from ..utils.faults import InjectedFault
 from ..utils.hostwork import HOST_WORK_SEM as _HOST_WORK_SEM
 from ..utils.lock_witness import witness_lock
 from . import kernels
@@ -450,7 +452,7 @@ class TorchPlacementEngine:
                     else:
                         chosen, scores, pulls, skipped_steps, evict = (
                             self.run_scan_single(enc))
-            except ChaosFault:
+            except InjectedFault:
                 # an injected dispatch fault: the host iterator stack
                 # places the eval, as the reference does for any dispatch
                 # error (engine.py:1516-1526)

@@ -54,8 +54,8 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from ..chaos.crash import CrashReplay, ServerProcess
-from ..rpc.codec import decode, encode
-from ..rpc.transport import RPCClient, RPCError
+from ..rpc.codec import decode
+from ..rpc.transport import RPCClient, RPCError, request_frame
 from ..structs.structs import EVAL_STATUS_COMPLETE, Evaluation, QueryOptions
 from .stale import StaleReader
 
@@ -416,14 +416,12 @@ class ServeReplay(CrashReplay):
         """Queue the watcher's next blocking read and wait for writability."""
         w.seq += 1
         w.min_index = w.last_index
-        req = {"seq": w.seq, "method": "Eval.GetEval",
-               "body": (w.key, QueryOptions(min_query_index=w.last_index,
-                                            max_query_time=self.watch_query_time,
-                                            allow_stale=w.stale))}
-        if w.stale:
-            req["stale"] = True
-        payload = encode(req)
-        w.out = bytearray(_FRAME_LEN.pack(len(payload)) + payload)
+        w.out = bytearray(request_frame(
+            w.seq, "Eval.GetEval", w.key,
+            QueryOptions(min_query_index=w.last_index,
+                         max_query_time=self.watch_query_time,
+                         allow_stale=w.stale),
+            stale=w.stale))
         w.inbuf = bytearray()
         w.in_flight = True
         w.t_park = time.monotonic()

@@ -94,6 +94,13 @@ job "crunch" {
 
 JOBS = [("web", SERVICE), ("sys", SYSTEM), ("crunch", BATCH)]
 
+# The seeded nodes are registered on the server directly and never
+# heartbeat: with the default TTLs (10-30 s, drawn at random; the port
+# adds 10 s of grace, the JAX package none) a slow run marked some of
+# them down before ``node status`` read them, in one package and not the
+# other. Their TTLs outlast any run.
+NO_EXPIRY = {"heartbeat_min_ttl": 3600.0, "heartbeat_max_ttl": 3600.0}
+
 PLAN = SERVICE.replace("count = 30", "count = 34").replace("cpu = 300", "cpu = 350")
 
 
@@ -157,13 +164,15 @@ def drive(pkg, capsys):
     if pkg == "port":
         nodes = seeded_nodes(mock)
         srv = Server(ServerConfig(device="cpu", num_schedulers=1, deterministic=True,
-                                  ring_decorrelate=False, device_min_placements=0))
+                                  ring_decorrelate=False, device_min_placements=0,
+                                  **NO_EXPIRY))
         agent = Agent(AgentConfig(device="cpu", dev_mode=True, name="slice"), server=srv)
         api_cls, cfg_cls, cli = APIClient, APIConfig, port_cli
     else:
         nodes = seeded_nodes(jmock)
         srv = JaxServer(JaxServerConfig(num_schedulers=1, deterministic=True,
-                                        ring_decorrelate=False, device_min_placements=0))
+                                        ring_decorrelate=False, device_min_placements=0,
+                                        **NO_EXPIRY))
         agent = JaxAgent(JaxAgentConfig(dev_mode=True, name="slice"), server=srv)
         api_cls, cfg_cls, cli = JaxAPIClient, JaxAPIConfig, jax_cli
     names = {n.id: n.name for n in nodes}
@@ -255,7 +264,9 @@ def test_job_status_text_equal(views):
 def test_node_status_text_equal(views):
     port = views["port"]["node_status"]
     assert port == views["jax"]["node_status"]
-    assert sum("seed-" in line for line in port.splitlines()) == N_NODES
+    seeds = [line.split() for line in port.splitlines() if "seed-" in line]
+    assert len(seeds) == N_NODES
+    assert all(row[-2:] == ["eligible", "ready"] for row in seeds), port
 
 
 def test_codec_carries_the_autopilot_config_as_the_jax_codec():

@@ -795,27 +795,99 @@ def test_batcher_on_cuda_without_cuda_raises(monkeypatch):
         DeviceBatcher()
 
 
+_BLOCKED_LINT = _BLOCKER + textwrap.dedent("""
+    import runpy
+    sys.argv = ["nomad_tpu_torch.analysis"] + {argv!r}
+    code = 0
+    try:
+        runpy.run_module("nomad_tpu_torch.analysis", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as e:
+        code = e.code or 0
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in
+                    ("jax", "jaxlib", "msgpack", "nomad_tpu")
+                    and sys.modules[m] is not None)
+    print("IMPORTED-FORBIDDEN", leaked, flush=True)
+    sys.exit(code)
+""")
+
+
 def test_port_threaded_code_passes_the_lock_and_state_lint():
-    """nomad-lint's lock-order, condition-discipline and
-    shared-state-discipline rules over the whole port, with the wire
-    modules (wire raft, the RPC endpoints, the crash and serve harnesses),
-    and the two rules those modules answer to: blocking-read-discipline
-    (every read endpoint through ``blocking_read``) and
-    subprocess-discipline (every spawned server process bounded and
-    reaped). Against an empty baseline: a finding is fixed in the port,
-    never baselined."""
+    """The port's own nomad-lint (``python -m nomad_tpu_torch.analysis``)
+    with all thirteen rules over the whole port, with the wire modules
+    (wire raft, the RPC endpoints, the crash and serve harnesses), in a
+    process where importing jax, anything of nomad_tpu, or msgpack fails.
+    Against an empty baseline: a finding is fixed in the port, never
+    baselined."""
     baseline = Path(__file__).resolve().parent / "torch_lint_baseline.json"
     assert baseline.read_text().strip() == "[]"
+    assert (REPO / "nomad_tpu_torch" / "analysis" / "baseline.json").read_text().strip() == "[]"
+    from nomad_tpu_torch.analysis import default_checkers
+
+    rules = [c.rule for c in default_checkers()]
+    assert len(rules) == 13
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    argv = ["nomad_tpu_torch", "--rule", ",".join(rules), "--baseline", str(baseline)]
     out = subprocess.run(
-        [sys.executable, "-m", "nomad_tpu.analysis", "nomad_tpu_torch",
-         "--rule", "lock-order,condition-discipline,shared-state-discipline,"
-                   "blocking-read-discipline,subprocess-discipline",
-         "--baseline", str(baseline)],
-        capture_output=True, text=True, timeout=600, cwd=str(REPO))
+        [sys.executable, "-c", _BLOCKED_LINT.format(repo=str(REPO), argv=argv)],
+        capture_output=True, text=True, timeout=600, cwd=str(REPO), env=env)
     assert out.returncode == 0, out.stdout + out.stderr
+    assert "IMPORTED-FORBIDDEN []" in out.stdout, out.stdout
     for module in ("server/wire_raft.py", "rpc/endpoints.py", "chaos/crash.py",
                    "chaos/crash_server.py", "watch/serve.py", "watch/blocking.py"):
         assert (REPO / "nomad_tpu_torch" / module).is_file(), module
+
+
+_BLOCKED_SHARDED_RUN = _BLOCKER + textwrap.dedent("""
+    import threading
+    import numpy as np
+    from nomad_tpu_torch.parallel import make_mesh
+    from nomad_tpu_torch.tpu.batcher import DeviceBatcher
+    from nomad_tpu_torch.tpu.engine import EncodedEval, TorchPlacementEngine, example_scan_inputs
+
+    def enc(seed):
+        n_pad, static, carry, xs = example_scan_inputs(
+            n_nodes=48, n_tgs=2, n_placements=6, n_spreads=1, seed=seed, dtype=np.int32)
+        return EncodedEval(n_real=48, n_pad=n_pad, g=2, s=static[9].shape[1],
+                           v=static[10].shape[2], p=6, dtype=np.int32, static=static,
+                           carry=carry, xs=xs, missing_list=[], nodes=[], table=None,
+                           start_ns=0)
+
+    encs = [enc(s) for s in (1, 2, 3)]
+    singles = [TorchPlacementEngine.shared("cpu").run_scan_single(e) for e in encs]
+    b = DeviceBatcher(max_batch=4, window_ms=2000.0, device="cpu",
+                      mesh=make_mesh(4, eval_parallel=4, devices=["cpu"] * 4))
+    out = [None] * 3
+    threads = [threading.Thread(target=lambda i=i: out.__setitem__(i, b.run(encs[i])))
+               for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    b.stop()
+    assert b.stats_snapshot()["device_dispatches"] == dict(cpu=3), b.stats
+    for single, got in zip(singles, out):
+        for x, y in zip(single, got):
+            assert np.array_equal(x, y)
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in
+                    ("jax", "jaxlib", "msgpack", "nomad_tpu") and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("SHARDED-ISOLATED-OK", flush=True)
+""")
+
+
+def test_sharded_batch_runs_with_jax_nomad_tpu_and_msgpack_blocked():
+    """An eval-sharded ``DeviceBatcher`` batch over a mesh of four CPU
+    entries, in a process where importing jax, anything of nomad_tpu, or
+    msgpack fails: three shard launches, each eval's result its single
+    scan's."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_SHARDED_RUN.format(repo=str(REPO))],
+                         capture_output=True, text=True, timeout=240, env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stdout + out.stderr[-4000:]
+    assert "SHARDED-ISOLATED-OK" in out.stdout
 
 
 _BLOCKED_CLI = _BLOCKER + textwrap.dedent("""

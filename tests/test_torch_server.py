@@ -408,13 +408,25 @@ def test_failed_launch_nacks_the_eval_and_places_nothing(deterministic, monkeypa
         s.stop()
 
 
-def test_device_mesh_over_several_gpus_is_not_ported(monkeypatch):
+def test_device_mesh_with_a_node_axis_is_not_ported(monkeypatch):
+    """Four GPUs reported and ``device_batch`` 2: the reference's grid is
+    (2, 2), whose node axis is not ported, so building the server raises
+    (no quiet unsharded run); ``device_batch`` 4 gives (4, 1), which
+    builds."""
+    import threading
+
     import torch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        Server(ServerConfig(device="cuda", device_mesh=True))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    before = threading.active_count()
+    with pytest.raises(NotImplementedError, match="nodes=2 > 1.*the node axis"):
+        Server(ServerConfig(device="cuda", device_mesh=True, device_batch=2))
+    assert threading.active_count() == before
+    s = Server(ServerConfig(device="cuda", device_mesh=True, device_batch=4))
+    assert dict(s.device_batcher.mesh.shape) == {"evals": 4, "nodes": 1}
+    assert [str(d) for d in s.device_batcher.mesh.devices.flat] == [
+        f"cuda:{i}" for i in range(4)]
 
 
 def test_device_fault_degrades_to_host_placements_equal_to_jax(monkeypatch):
