@@ -3,7 +3,8 @@
 kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N] [--churn-only | --wire-only | --devices-only |
-                                      --client-only | --agent-only | --mesh-only]
+                                      --client-only | --agent-only | --mesh-only |
+                                      --nodes-only]
 
 Run from the root of a checkout on a machine with one CUDA card, nvcc
 and PyTorch built for CUDA. Phases, each of which fails the run:
@@ -144,9 +145,10 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    while this process's heap is small): (a) three of the port's Servers in this process (ServerConfig
    defaults, the float arm, 16 workers each), each on its own WireRaft
    over TCP with a durable native log and behind its own RPCServer; the
-   C1M fleet through ``raft_apply``, 7,500 placements of the job mix
-   (60,000 before the devices phase, 20,000 before the client phase and
-   10,000 before the agent phase; cut to make room) through
+   C1M fleet through ``raft_apply``, 5,000 placements of the job mix
+   (60,000 before the devices phase, 20,000 before the client phase,
+   10,000 before the agent phase and 7,500 before the nodes phase; cut to
+   make room) through
    ``Job.Register`` over the wire, then the leader's raft and RPC stop
    (its Server stays up), a new leader is elected and 2,000 more
    (10,000, 5,000, then 2,500 before) go through it. It fails unless
@@ -218,8 +220,9 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    kernels line, no result).
 17. the agent (after the client phase): an ``Agent`` built through the
    CLI's config path from an HCL file (server and client in one, on the
-   card, 16 schedulers); the C1M fleet registered over RPC and kept
-   alive by the heartbeat pump's process; through ``python -m
+   card, 16 schedulers, 60 s of heartbeat grace); the C1M fleet
+   registered over RPC and kept alive by the heartbeat pump's process;
+   through ``python -m
    nomad_tpu_torch.cli`` processes: a raw_exec batch job of AGENT_BATCH
    allocs on the agent's own client (to ``complete``; a blocking query
    on /v1/jobs must wake on it), ``job status``, ``alloc logs``, ``alloc
@@ -250,6 +253,23 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
    prints each shard's launch ms alone, both at once on their streams
    (host clock), the unsharded launch ms and K3's bound for the batch.
    ``--mesh-only`` builds the kernels and runs only this phase.
+19. the node axis (after the mesh): the same 8 evals, int then float,
+   through a ``DeviceBatcher`` over a (2, 2) mesh of the one card given
+   four times: each group of 4 evals splits its 5,120 padded nodes over
+   2 node shards, and every step is 3 launches a shard of the
+   node-sharded kernel (``csrc/place_scan_nodes.cu``), its partials
+   copied between the shards' streams between launches. It fails
+   unless only that kernel ran (its LAUNCHES rise by 2 x 2 x (3 P + 1)
+   and K3's do not), the results equal the one-launch unsharded K3
+   batch (int bit for bit, float by ``tpu/parity.py``, whether bit for
+   bit printed) and group 0 equals the plain node-sharded version
+   (``tpu/node_shard.py`` on the CPU: int bit for bit, float by the
+   parity bound); then the ``preempt`` variant (P = P_VARIANT, evicting)
+   over a (1, 2) mesh equals the unsharded K1 has_pre launch bit for
+   bit, evictions included. It prints the batch's host ms, launches a
+   batch, the unsharded launch's ms, K3's bound for the batch and the
+   phase's seconds. ``--nodes-only`` builds the kernels and runs only
+   this phase.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -1944,6 +1964,219 @@ def log_mesh(recs, card) -> None:
             f"{json.dumps(rec['batcher_sections'], sort_keys=True)}")
 
 
+NODES_MESH = (2, 2)
+
+
+def nodes_batch(kernels, batcher_mod, mesh, encs, dev):
+    """``encs`` through a ``DeviceBatcher`` over ``mesh`` (the main path:
+    one ``run()`` a thread, one batch), the launch counts set to 0 just
+    before and read just after. Returns (results, launches, batcher
+    stats, its sections, host ms from the first ``run()`` to the last
+    return)."""
+    import threading
+
+    b = len(encs)
+    bat = batcher_mod.DeviceBatcher(max_batch=b, window_ms=60_000.0, device=dev, mesh=mesh)
+    got, errors = [None] * b, [None] * b
+
+    def submit(i):
+        try:
+            got[i] = bat.run(encs[i])
+        except Exception as e:  # noqa: BLE001 — every error fails the phase below
+            errors[i] = e
+
+    threads = [threading.Thread(target=submit, args=(i,)) for i in range(b)]
+    kernels.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        bat.stop()
+    launches = dict(kernels.LAUNCHES)
+    if any(e is not None for e in errors) or any(g is None for g in got):
+        raise AssertionError(f"nodes: run() errors {errors}")
+    return got, launches, bat.stats_snapshot(), bat.section_profile(), wall_ms
+
+
+def phase_nodes(kernels, node_shard, parity, seed: int):
+    """The node axis on the card: the mesh phase's 8 C1M-mix evals at
+    N_NODES through a ``DeviceBatcher`` over a (2, 2) mesh of the one
+    card given four times, in the int arm and then the float arm; each
+    eval group of 4 runs over 2 node shards, 3 launches a shard a step
+    (``kernels.place_scan_nodes_phase``), the partials copied between
+    the shards' streams between launches. Fails unless only the
+    node-sharded kernel ran (its LAUNCHES rose by 2 groups x 2 shards x
+    (3 P + 1), K3's did not), the results equal the one-launch unsharded
+    K3 batch (int bit for bit, float by ``tpu/parity.py``) and group 0's
+    node-sharded outputs equal the plain node-sharded version (on the
+    CPU, bit for bit). Then one preempting eval that evicts over a
+    (1, 2) mesh, bit for bit against the unsharded K1 has_pre launch,
+    evictions included. Returns a record per arm and the preempt
+    record."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nomad_tpu_torch.parallel import batched_place_scan, make_mesh
+    from nomad_tpu_torch.tpu import batcher as batcher_mod
+    from nomad_tpu_torch.tpu import convert
+    from nomad_tpu_torch.tpu import engine as engine_mod
+    from nomad_tpu_torch.tpu.convert import HostSlab, from_device_packed
+
+    dev = torch.device("cuda", torch.cuda.current_device()) if DEVICE == "cuda" \
+        else torch.device(DEVICE)
+    ep, nn = NODES_MESH
+    recs = {}
+    for deterministic in (True, False):
+        arm = "int" if deterministic else "float"
+        kernel = "place_scan_nodes" if deterministic else "place_scan_nodes_f32"
+        t_arm = time.perf_counter()
+        encs = mesh_encodes(kernels, engine_mod, deterministic, seed)
+        b = len(encs)
+        dims = batcher_mod.batch_dims(encs, nn)
+
+        # the unsharded batch: one K3 launch of all 8 evals
+        packed = batcher_mod.pack_batch(encs, dims, b, dev, HostSlab(pin=dev.type == "cuda"))
+        whole_fresh = dataclasses.replace(packed, buf=packed.buf.clone())
+        whole = from_device_packed(*kernels.place_scan_batched_packed(packed))
+        whole_ms = packed_scan_ms(kernels, whole_fresh)
+
+        # the node-sharded batch through the batcher's main path
+        mesh = make_mesh(ep * nn, eval_parallel=ep, devices=[dev] * (ep * nn))
+        got, launches, stats, sections, wall_ms = nodes_batch(kernels, batcher_mod, mesh,
+                                                              encs, dev)
+        per_batch = ep * nn * (3 * dims["p_pad"] + 1)
+        others = sum(v for k, v in launches.items() if k != kernel)
+        if launches[kernel] != per_batch or others:
+            raise AssertionError(f"nodes {arm}: launches {launches}, want {per_batch} of {kernel} "
+                                 "and no other")
+        if stats["dispatches"] != 1 or stats["device_dispatches"] != {str(dev): ep * nn}:
+            raise AssertionError(f"nodes {arm}: batcher stats {stats}")
+
+        # node-sharded against unsharded, eval by eval
+        exact, worst = True, 0.0
+        for i, (enc, g) in enumerate(zip(encs, got)):
+            ref = tuple(a[i, :enc.p] for a in whole)
+            exact = exact and all(x.dtype == y.dtype and np.array_equal(x, y)
+                                  for x, y in zip(ref, g))
+            if deterministic:
+                if not exact:
+                    raise AssertionError(f"nodes int eval {i}: node-sharded differs from the "
+                                         "unsharded batch")
+            else:
+                _div, diff, _ex = parity.check_float_scan(
+                    ((), ref[:4]), ((), tuple(g[:4])), enc.xs[0][:enc.p],
+                    f"nodes float eval {i}: node-sharded against unsharded")
+                worst = max(worst, diff)
+
+        # group 0 against the plain node-sharded version, on the CPU (int
+        # bit for bit; float by tpu/parity.py: the CPU's pow is not powf)
+        group = encs[:b // ep]
+        plain_exact, plain_worst = True, 0.0
+        t0 = time.perf_counter()
+        for i, enc in enumerate(group):
+            padded = batcher_mod.pad_encoded(enc, **dims)
+            _, ys = node_shard.place_scan_nodes(
+                dims["n_pad"], *convert.scan_inputs_to_torch(*padded, "cpu"), nn)
+            ys = tuple(y.numpy()[:enc.p] for y in ys)
+            same = all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(got[i], ys))
+            plain_exact = plain_exact and same
+            if deterministic and not same:
+                raise AssertionError(f"nodes int eval {i}: the kernel differs from the plain "
+                                     "node-sharded version")
+            if not deterministic:
+                plain_worst = max(plain_worst, parity.check_float_scan(
+                    ((), ys[:4]), ((), tuple(got[i][:4])), enc.xs[0][:enc.p],
+                    f"nodes float eval {i}: the kernel against the plain node-sharded version")[1])
+        plain_ms = (time.perf_counter() - t0) * 1e3
+
+        # group 0 node-sharded alone: the launcher's phase loop and its
+        # synchronize (host clock), median of 3, outputs held again
+        launcher = batcher_mod.ShardLauncher(make_mesh(nn, eval_parallel=1, devices=[dev] * nn))
+        loop_ms = []
+        for _ in range(3):
+            times = {}
+            again = launcher(group, dims, len(group), times)
+            for i, enc in enumerate(group):
+                if not all(np.array_equal(x[i, :enc.p], y) for x, y in zip(again, got[i])):
+                    raise AssertionError(f"nodes {arm} eval {i}: a rerun of group 0 differs")
+            loop_ms.append(times["launch"])
+        k_ms = sorted(loop_ms)[1]
+        sb, cb, xb = whole_fresh.parts()
+        skipped = torch.from_numpy(whole[3])
+        nbytes, ops = kernels.place_scan_batched_work(sb, cb, xb, skipped)
+        b_ms, b_by = bound(nbytes, ops)
+        g0 = [tuple(a[:len(group)] for a in part) for part in (sb, cb, xb)]
+        g_bytes, g_ops = kernels.place_scan_batched_work(*g0, skipped[:len(group)])
+        g_ms, g_by = bound(g_bytes, g_ops)
+        recs[arm] = {
+            "arm": arm, "kernel": kernel, "launches": launches[kernel], "evals": b,
+            "n_pad": dims["n_pad"], "p_pad": dims["p_pad"], "wall_ms": wall_ms,
+            "launch_section": sections["launch"], "exact": exact, "worst": worst,
+            "whole_ms": whole_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "group_ms": k_ms, "group_plain_ms": plain_ms, "group_bound_ms": g_ms,
+            "plain_exact": plain_exact, "plain_worst": plain_worst,
+            "row": (k_ms, plain_ms, g_ms, g_by), "err": max(worst, plain_worst),
+            "phase_s": time.perf_counter() - t_arm,
+        }
+
+    # one preempting eval over (1, 2), against the unsharded K1 has_pre launch
+    t_pre = time.perf_counter()
+    n_pad, st, ca, xs = engine_mod.example_scan_variant(
+        "preempt", n_nodes=N_NODES, n_tgs=3, n_placements=P_VARIANT, seed=1)
+    enc = engine_mod.EncodedEval(
+        n_real=N_NODES, n_pad=n_pad, g=3, s=st[9].shape[1], v=st[10].shape[2], p=P_VARIANT,
+        dtype=np.int32, static=st, carry=ca, xs=xs, missing_list=[], nodes=[], table=None,
+        start_ns=0)
+    dims = batcher_mod.batch_dims([enc], nn)
+    padded = batcher_mod.pad_encoded(enc, **dims)
+    _, ref = kernels.place_scan(dims["n_pad"], *convert.scan_inputs_to_torch(*padded, dev))
+    kernels.reset_launch_counts()
+    out = batched_place_scan(make_mesh(nn, eval_parallel=1, devices=[dev] * nn))([enc])
+    pre_launches = dict(kernels.LAUNCHES)
+    want = nn * (3 * dims["p_pad"] + 1)
+    if pre_launches["place_scan_nodes"] != want or pre_launches["place_scan"]:
+        raise AssertionError(f"nodes preempt: launches {pre_launches}, want {want} node-sharded")
+    for name, x, y in zip(("chosen", "scores", "pulls", "skipped", "evict"), out, ref):
+        if not np.array_equal(x[0], y.cpu().numpy()):
+            raise AssertionError(f"nodes preempt: node-sharded {name} differs from the "
+                                 "unsharded K1 has_pre launch")
+    evicting = int((out[4][0] >= 0).any(axis=1).sum())
+    if evicting < 1:
+        raise AssertionError("nodes preempt: no step evicted")
+    pre = {"launches": pre_launches["place_scan_nodes"], "evicting": evicting, "p": P_VARIANT,
+           "placed": int((out[0][0] >= 0).sum()), "n_pad": dims["n_pad"],
+           "seconds": time.perf_counter() - t_pre}
+    return recs, pre
+
+
+def log_nodes(recs, pre, card) -> None:
+    for rec in recs.values():
+        log(f"nodes {rec['arm']}: {rec['evals']} C1M-mix evals (n_pad {rec['n_pad']}, P "
+            f"{rec['p_pad']}) over a {NODES_MESH} mesh of the one card: {rec['launches']} "
+            f"{rec['kernel']} launches a batch (3 a shard a step), no K3 launch; node-sharded "
+            f"equal to the unsharded batch "
+            f"{'bit for bit' if rec['exact'] else 'within the parity bound, not bit for bit'} "
+            f"(max |dscore| {rec['worst']}); group 0 equal to the plain node-sharded version "
+            f"on the CPU {'bit for bit' if rec['plain_exact'] else 'within the parity bound'} "
+            f"(max |dscore| {rec['plain_worst']})")
+        log(f"  batch host ms {rec['wall_ms']:.1f} (the batcher's launch section "
+            f"{json.dumps(rec['launch_section'], sort_keys=True)}); the unsharded K3 launch ms "
+            f"{rec['whole_ms']:.3f}; K3's bound for the batch {rec['bound_ms']:.6f} ms "
+            f"({rec['bound_by']}); group 0 alone: node-sharded phase loop {rec['group_ms']:.1f} "
+            f"ms (host clock), plain node-sharded {rec['group_plain_ms']:.1f} ms (CPU), bound "
+            f"{rec['group_bound_ms']:.6f} ms; phase {rec['phase_s']:.1f} s; on {card}")
+    log(f"nodes preempt: the preempt variant (n_pad {pre['n_pad']}, P {pre['p']}) over a (1, 2) "
+        f"mesh: {pre['launches']} place_scan_nodes launches, {pre['placed']} placed, "
+        f"{pre['evicting']} evicting steps, equal to the unsharded K1 has_pre launch bit for bit "
+        f"(evict included); {pre['seconds']:.1f} s; on {card}")
+
+
 def c1m_jobs(pkg_mock, structs):
     """bench.py c1m_mixed_jobs templates 0 (service, spread + affinity),
     10 (service), 28 (batch), then 10 again with its cpu raised by 1."""
@@ -2502,10 +2735,10 @@ def log_churn(rec, card):
 # 1.0 s, sized for one server a process
 #: the wire cluster's placements before and after its failover (60,000
 #: and 10,000 before the devices phase, 20,000 and 5,000 before the client
-#: phase, 10,000 and 2,500 before the agent phase; cut to make room for
-#: them: every captured launch is held against the plain float step,
-#: 104.5 s of the phase's 170.8 s at 20,000)
-WIRE_PLACEMENTS = 7_500
+#: phase, 10,000 and 2,500 before the agent phase, 7,500 before the nodes
+#: phase; cut to make room for them: every captured launch is held against
+#: the plain float step, 104.5 s of the phase's 170.8 s at 20,000)
+WIRE_PLACEMENTS = 5_000
 WIRE_FAILOVER_PLACEMENTS = 2_000
 WIRE_RAFT = dict(election_timeout_min=2.0, election_timeout_max=4.0, heartbeat_interval=0.1,
                  rpc_timeout=30.0, apply_timeout=120.0)
@@ -3964,14 +4197,19 @@ def log_client(rec, card):
         log(f"  K4 launch {i}: kernel_ms={k[0]:.4f} plain_ms={k[1]:.2f} bound_ms={k[2]:.6f}")
 
 
-#: the agent phase: the template mix's placements over the fleet, the
-#: batch job's allocs on the agent's own client, the heartbeat pump's rest
-#: between passes (a node expires 20-40 s after its last heartbeat: TTL
-#: 10-30 s and 10 s of grace), the phase's own time limit (holds
-#: included) and the real agent process's time to serve, place and stop
-AGENT_PLACEMENTS = 10_000
+#: the agent phase: the template mix's placements over the fleet (10,000
+#: before the nodes phase; cut to make room for it: every K3 launch is held
+#: against the plain float step), the batch job's allocs on the agent's own
+#: client, the heartbeat pump's rest between passes, the server's heartbeat
+#: grace (a node expires AGENT_GRACE_S plus its 10-30 s TTL after its last
+#: heartbeat; at 10 s, a pump pass over the 5,000 nodes that outlasted
+#: 15 s on a loaded host let the shortest TTLs expire, and the system job
+#: then missed nodes), the phase's own time limit (holds included) and the
+#: real agent process's time to serve, place and stop
+AGENT_PLACEMENTS = 5_000
 AGENT_BATCH = 50
 AGENT_PUMP_S = 5.0
+AGENT_GRACE_S = 60
 AGENT_PHASE_S = 240.0
 AGENT_PROC_S = 90.0
 #: the datacenter of the agent's own client node (the fleet is in dc1)
@@ -3994,8 +4232,9 @@ ports {{
 }}
 
 server {{
-  enabled        = true
-  num_schedulers = {SERVER_WORKERS}
+  enabled         = true
+  num_schedulers  = {SERVER_WORKERS}
+  heartbeat_grace = "{AGENT_GRACE_S}s"
 }}
 
 client {{
@@ -4323,6 +4562,16 @@ def phase_agent(kernels, step, forced, parity, seed: int):
             wait(lambda: state.node_by_id(agent.client.node.id) is not None,
                  "the agent's client registered")
             local_id = agent.client.node.id
+            # the agent's client re-registers its node when its devices
+            # change (client.Client.start); counted, with the time of each
+            registers = []
+            client_register = agent.client.proxy.register_node
+
+            def counted_register(node):
+                registers.append(time.monotonic())
+                return client_register(node)
+
+            agent.client.proxy.register_node = counted_register
 
             # the fleet over RPC, four connections at once; raw_exec too,
             # for the system job
@@ -4431,6 +4680,7 @@ def phase_agent(kernels, step, forced, parity, seed: int):
                 # 2. the system job over every node (K4), before the mix
                 # packs nodes full
                 t0 = time.perf_counter()
+                t0_mono = time.monotonic()
                 cli_run(["job", "run", "-detach", write("system.hcl", specs["smoke-system"])],
                         addr)
                 try:
@@ -4440,11 +4690,21 @@ def phase_agent(kernels, step, forced, parity, seed: int):
                     nodes = state.read_with_index(lambda s: list(s.nodes()))[0]
                     evals = state.read_with_index(
                         lambda s: s.evals_by_job("default", "smoke-system"))[0]
+                    have = {a.node_id for a in _live_allocs(state, "smoke-system")}
+                    missing = [
+                        (n.id, "local" if n.id == local_id else "fleet", n.status, n.datacenter,
+                         n.create_index, n.modify_index,
+                         [(k, d.detected, d.healthy) for k, d in sorted(n.drivers.items())])
+                        for n in nodes if n.id not in have]
                     raise AssertionError(
                         f"{e}: {len(_live_allocs(state, 'smoke-system'))} allocs; nodes by "
                         f"status {Counter(n.status for n in nodes)}; evals "
-                        f"{[(ev.status, ev.triggered_by, sorted(ev.failed_tg_allocs or {})) for ev in evals]}") from None
+                        f"{[(ev.status, ev.triggered_by, ev.modify_index, getattr(ev, 'snapshot_index', None), sorted(ev.failed_tg_allocs or {})) for ev in evals]}; "
+                        f"nodes without an alloc {missing[:5]}; the agent's client "
+                        f"re-registered at {[round(t - t0_mono, 3) for t in registers]} s of "
+                        "the system job's run") from None
                 rec["system_s"] = time.perf_counter() - t0
+                rec["client_registers"] = len(registers)
                 wait(lambda: [a.client_status for a in _live_allocs(state, "smoke-system")
                               if a.node_id == local_id] == ["running"],
                      "smoke-system running on the agent's client")
@@ -4561,7 +4821,8 @@ def log_agent(rec, card):
         f"{rec['batch_run_ms']:.1f} ms, all complete {rec['batch_s']:.3f} s after it, every "
         f"stdout right; a blocking query on /v1/jobs woke {rec['wake_ms']:.1f} ms after the "
         f"route called Server.register_job")
-    log(f"  smoke-system on {N_NODES + 1} nodes in {rec['system_s']:.3f} s; Job.Plan over "
+    log(f"  smoke-system on {N_NODES + 1} nodes in {rec['system_s']:.3f} s (the agent's client "
+        f"re-registered {rec['client_registers']} times before it); Job.Plan over "
         f"HTTP {rec['plan_ms']:.1f} ms (CLI `job plan` {rec['plan_cli_ms']:.1f} ms); "
         f"{rec['nodes_checked']} nodes, none overcommitted; peak live tasks "
         f"{rec['peak']['task']}, logmons {rec['peak']['logmon']}, none left; heartbeat pump "
@@ -4646,6 +4907,9 @@ def main() -> int:
     ap.add_argument("--mesh-only", action="store_true",
                     help="build the kernels and run the mesh phase only (prints no kernels "
                          "line and no result)")
+    ap.add_argument("--nodes-only", action="store_true",
+                    help="build the kernels and run the nodes phase only (prints no kernels "
+                         "line and no result)")
     args = ap.parse_args()
 
     if not (REPO / "nomad_tpu_torch" / "tpu" / "csrc").is_dir():
@@ -4658,7 +4922,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from nomad_tpu_torch.tpu import chunk, convert, engine, forced, kernels, parity, step
+    from nomad_tpu_torch.tpu import (chunk, convert, engine, forced, kernels, node_shard, parity,
+                                     step)
 
     t_start = time.perf_counter()
     card = gpu_line()
@@ -4713,6 +4978,10 @@ def main() -> int:
         log_mesh(phase_mesh(kernels, step, parity, args.seed), card)
         log(f"card: {card}")
         return 0
+    if args.nodes_only:
+        log_nodes(*phase_nodes(kernels, node_shard, parity, args.seed), card)
+        log(f"card: {card}")
+        return 0
     churn = churn_phases()
     if args.churn_only:
         log(f"card: {card}")
@@ -4735,6 +5004,9 @@ def main() -> int:
     mesh = phase_mesh(kernels, step, parity, args.seed)
     log_mesh(mesh, card)
     stamp("mesh done")
+    nodes, nodes_pre = phase_nodes(kernels, node_shard, parity, args.seed)
+    log_nodes(nodes, nodes_pre, card)
+    stamp("nodes done")
 
     dev_records, captured, launches = phase_slice(kernels, args.seed)
     for rec in dev_records:
@@ -4841,6 +5113,10 @@ def main() -> int:
     # the main paths' own kernel inputs, replayed: kernel vs plain, times, bound
     rows = {name: [] for name in ("place_scan", "place_scan_f32", "place_scan_has_pre",
                                   "forced_eval", "forced_eval_f32")}
+    # the nodes phase's group 0 in each arm: the node-sharded scan held
+    # against its plain version in the phase
+    rows["place_scan_nodes"] = [nodes["int"]["row"]]
+    rows["place_scan_nodes_f32"] = [nodes["float"]["row"]]
     rows["chunk_scan"] = k5_rows
     for i, (fresh, after, out, out_layout) in enumerate(captured):
         # run_scan_single's batch of one: the eval's own arrays
@@ -4946,6 +5222,8 @@ def main() -> int:
         "forced_eval_f32": (servers["float"][0]["launches"]["forced_eval_f32"]
                             + agent_rec["launches"]["forced_eval_f32"]),
         "chunk_scan": servers["chunked"][0]["launches"]["chunk_scan"],
+        "place_scan_nodes": nodes["int"]["launches"],
+        "place_scan_nodes_f32": nodes["float"]["launches"],
     }
     replaces = {
         "place_scan": "nomad_tpu/tpu/engine.py:213",
@@ -4954,11 +5232,15 @@ def main() -> int:
         "forced_eval": "nomad_tpu/tpu/engine.py:888",
         "forced_eval_f32": "nomad_tpu/tpu/engine.py:888",
         "chunk_scan": "nomad_tpu/tpu/engine.py:3033",
+        "place_scan_nodes": "nomad_tpu/tpu/engine.py:1000",
+        "place_scan_nodes_f32": "nomad_tpu/tpu/engine.py:1000",
     }
     errs = {"place_scan": worst, "place_scan_f32": worst_f, "place_scan_has_pre": 0,
-            "forced_eval": 0, "forced_eval_f32": 0, "chunk_scan": worst_k5}
+            "forced_eval": 0, "forced_eval_f32": 0, "chunk_scan": worst_k5,
+            "place_scan_nodes": nodes["int"]["err"], "place_scan_nodes_f32": nodes["float"]["err"]}
     sources = {"forced_eval": "forced_eval.cu", "forced_eval_f32": "forced_eval.cu",
-               "chunk_scan": "chunk_scan.cu"}
+               "chunk_scan": "chunk_scan.cu", "place_scan_nodes": "place_scan_nodes.cu",
+               "place_scan_nodes_f32": "place_scan_nodes.cu"}
     entries = []
     for name, r in rows.items():
         if not r:

@@ -47,6 +47,9 @@ class AgentConfig:
     retry_join_interval: float = 3.0
     bootstrap_expect: int = 1
     num_schedulers: int = 2
+    # seconds a node may stay past its heartbeat TTL before it is marked
+    # down (the server stanza's heartbeat_grace; ServerConfig's default)
+    heartbeat_grace: float = 10.0
     scheduler_algorithm: str = "tpu_binpack"
     # torch device of the embedded server's placement engine ("cuda" or
     # "cpu"); "cuda" without a card raises
@@ -250,6 +253,7 @@ class Agent:
             self.server = Server(
                 ServerConfig(
                     num_schedulers=self.config.num_schedulers,
+                    heartbeat_grace=self.config.heartbeat_grace,
                     scheduler_algorithm=self.config.scheduler_algorithm,
                     device=self.config.device,
                     chunk_k=self.config.chunk_k,

@@ -12,7 +12,7 @@ Nomad config files map over:
     ports { http rpc serf }
     advertise { rpc }
     server { enabled bootstrap_expect num_schedulers encrypt
-             authoritative_region raft_protocol(ignored)
+             authoritative_region heartbeat_grace raft_protocol(ignored)
              default_scheduler_config { scheduler_algorithm chunk_k
                                         parity_sample_rate } }
     client { enabled node_class servers meta {} host_volume "n" { path } }
@@ -28,8 +28,10 @@ hcl.DecodeObject) so typos fail loudly at boot instead of silently
 running defaults.
 
 Copied from ``nomad_tpu/agent/config_file.py`` into the PyTorch port,
-which imports nothing of ``nomad_tpu``. One change: the top-level key
-``device`` ("cuda" or "cpu") sets ``AgentConfig.device``.
+which imports nothing of ``nomad_tpu``. Two changes: the top-level key
+``device`` ("cuda" or "cpu") sets ``AgentConfig.device``, and the
+server's ``heartbeat_grace`` (a Go duration, as in Nomad's server
+stanza) sets ``AgentConfig.heartbeat_grace``.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import os
 from typing import Any, Dict, List
 
 from ..jobspec import HCLError, parse_hcl
+from ..jobspec.parse import parse_duration_ns
 from .agent import AgentConfig
 
 
@@ -109,7 +112,7 @@ _PORT_KEYS = {"http", "rpc", "serf"}
 _SERVER_KEYS = {
     "enabled", "bootstrap_expect", "num_schedulers", "encrypt",
     "authoritative_region", "retry_join", "wire_raft", "raft_protocol",
-    "default_scheduler_config",
+    "default_scheduler_config", "heartbeat_grace",
 }
 _CLIENT_KEYS = {
     "enabled", "node_class", "servers", "meta", "host_volume",
@@ -203,6 +206,11 @@ def apply_file_config(cfg: AgentConfig, data: Dict[str, Any]) -> AgentConfig:
         cfg.retry_join = _as_list(srv["retry_join"])
     if "wire_raft" in srv:
         cfg.wire_raft = _as_bool(srv["wire_raft"], "server.wire_raft")
+    if "heartbeat_grace" in srv:
+        try:
+            cfg.heartbeat_grace = parse_duration_ns(srv["heartbeat_grace"]) / 1e9
+        except HCLError as e:
+            raise ConfigError(f"server.heartbeat_grace: {e}") from None
     dsc = srv.get("default_scheduler_config") or {}
     if "scheduler_algorithm" in dsc:
         cfg.scheduler_algorithm = str(dsc["scheduler_algorithm"])

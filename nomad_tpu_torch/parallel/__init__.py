@@ -5,4 +5,5 @@ from .sharding import (  # noqa: F401
     batched_place_scan,
     batched_scan_shardings,
     make_mesh,
+    node_slices,
 )

@@ -17,13 +17,18 @@ over ``torch.device``s (a small :class:`Mesh` in place of
 ``tpu.batcher.DeviceBatcher`` given a mesh splits each batch into
 ``evals`` contiguous groups, each packed into its own slab and run as its
 own K3 launch (``kernels.place_scan_batched_packed``) on its own stream
-of its device. The node axis is not ported (ROADMAP.md Queue 1, the node
-axis): a mesh with ``nodes > 1`` raises where a batcher is built on it.
+of its device. With ``nodes > 1`` each group's padded node axis splits
+further into ``nodes`` contiguous slices (``node_slices``): every array
+whose spec below names ``"nodes"`` is sliced, everything else is
+replicated, and the slices run the node-sharded scan
+(``tpu.node_shard``, ``kernels.place_scan_nodes_phase``), whose three
+per-step exchanges go between the shards' streams as copies ordered by
+events, between launches.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -74,6 +79,17 @@ def make_mesh(n_devices: Optional[int] = None, eval_parallel: int = 1,
     grid = np.empty(n, dtype=object)
     grid[:] = devices
     return Mesh(grid.reshape(ep, n // ep))
+
+
+def node_slices(n_pad: int, nodes: int) -> List[Tuple[int, int]]:
+    """The contiguous ``[lo, hi)`` slice of a padded node axis of
+    ``n_pad`` nodes that each of ``nodes`` shards holds, in shard order:
+    equal slices, as the reference's even split of a ``"nodes"``-sharded
+    axis (the batcher rounds ``n_pad`` to a multiple of ``nodes``)."""
+    if nodes < 1 or n_pad % nodes:
+        raise ValueError(f"node_slices: {n_pad} nodes do not split evenly over {nodes} shards")
+    per = n_pad // nodes
+    return [(k * per, (k + 1) * per) for k in range(nodes)]
 
 
 def batched_scan_shardings(mesh: Mesh):
@@ -145,20 +161,28 @@ def batched_scan_shardings(mesh: Mesh):
     return static, carry, xs
 
 
+#: per array of the packed slab (``batched_scan_shardings`` order), the
+#: axis its spec names ``"nodes"`` (counting the leading eval axis), or
+#: None where the array is replicated over the node axis
+NODE_AXES = tuple(spec.index("nodes") if "nodes" in spec else None
+                  for part in batched_scan_shardings(None) for spec in part)
+
+
 def batched_place_scan(mesh: Mesh):
     """The mesh-sharded, eval-batched placement scan: a callable that
     takes a list of ``EncodedEval``s of one dtype and returns ``(chosen,
     scores, pulls, skipped, evict)``, each ``[len(encs), P_pad, ...]``,
-    in eval order. It splits the batch over the mesh's ``evals`` axis and
-    runs one K3 launch per shard (``tpu.batcher.ShardLauncher``, which
-    the ``DeviceBatcher`` given this mesh uses), as the reference wraps
-    its one builder (engine._build_batched_scan)."""
+    in eval order. It splits the batch over the mesh's ``evals`` axis
+    and, where ``nodes > 1``, each group's node axis over ``nodes``
+    shards (``tpu.batcher.ShardLauncher``, which the ``DeviceBatcher``
+    given this mesh uses), as the reference wraps its one builder
+    (engine._build_batched_scan) in the mesh's shardings."""
     from ..tpu.batcher import ShardLauncher, batch_dims
 
     launcher = ShardLauncher(mesh)
 
     def scan(encs):
         b_pad = launcher.round_batch(len(encs))
-        return launcher(encs, batch_dims(encs), b_pad)
+        return launcher(encs, batch_dims(encs, launcher.nodes), b_pad)
 
     return scan

@@ -21,10 +21,17 @@ Two of the reference's throughput mechanisms are reproduced here:
   port-collision / device host checks.
 
 Copied from ``nomad_tpu/server/plan_apply.py``
-into the PyTorch port, which imports nothing of ``nomad_tpu``. One
-change: ``PlanQueue.dequeue(timeout)`` on a disabled (follower's) queue
+into the PyTorch port, which imports nothing of ``nomad_tpu``. Two
+changes: ``PlanQueue.dequeue(timeout)`` on a disabled (follower's) queue
 waits out its timeout instead of returning at once, so a follower's
-planner does not spin while another server leads.
+planner does not spin while another server leads; and a plan rejected
+whole is answered only once the applies its evaluation saw have
+committed, its refresh index raised to theirs (``_respond_rejected``).
+The reference answers it at once with the committed index: a worker
+then re-plans from a snapshot without the in-flight plan it conflicted
+with (two evals' deterministic dynamic ports on one node), is rejected
+again, and its batch eval, out of attempts, waits blocked for the
+periodic retry of failed evals (60 s).
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ import logging
 import threading
 import time
 from concurrent.futures import Future
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -235,7 +242,7 @@ class Planner:
                     expected_epoch = snap.capacity_epoch
                     saw_inflight = apply_future is None
 
-                items, batch_delta, snap_ok, leftovers = (
+                items, batch_delta, snap_ok, leftovers, rejected = (
                     self._evaluate_and_fold(batch, snap)
                 )
                 carry = leftovers
@@ -261,17 +268,19 @@ class Planner:
                         )
                         expected_epoch = snap.capacity_epoch
                         redo = [it[0] for it in items]
-                        items, batch_delta, snap_ok, leftovers = (
+                        items, batch_delta, snap_ok, leftovers, again = (
                             self._evaluate_and_fold(redo, snap)
                         )
+                        rejected += again
                         carry = leftovers + carry
 
                 if not items:
+                    self._respond_rejected(rejected, prev_plan_result_index)
                     if not snap_ok:
                         snap = None
                         expected_epoch = None
                     continue
-                apply_future = self._dispatch_batch(items)
+                apply_future = self._dispatch_batch(items, rejected)
                 if expected_epoch is not None:
                     expected_epoch += batch_delta
                 if not snap_ok:
@@ -663,11 +672,18 @@ class Planner:
         ``capacity_delta`` predicts the epoch bumps their FSM apply will
         perform; ``snap_ok`` False means a fold failed and the snapshot
         must be discarded after dispatch — the un-evaluated remainder of
-        the batch is handed back as ``leftovers``."""
+        the batch is handed back as ``leftovers``. A plan whose every
+        placement was rejected (a noop result with a refresh index) is
+        not answered here but returned in ``rejected``: its rejection may
+        come from a plan whose apply is still in flight (the retained
+        snapshot holds it, or an earlier plan of this batch folded in),
+        and its worker must refresh to that apply's index, which only
+        its commit gives (``_respond_rejected``)."""
         items: List[Tuple[PendingPlan, PlanResult, dict]] = []
         delta_total = 0
         snap_ok = True
         leftovers: List[PendingPlan] = []
+        rejected: List[Tuple[PendingPlan, PlanResult]] = []
         for bi, pending in enumerate(batch):
             try:
                 start = metrics.now()
@@ -677,6 +693,9 @@ class Planner:
                     result = self.evaluate_plan(snap, pending.plan)
                 metrics.measure_since("nomad.plan.evaluate", start)
                 if result.is_noop():
+                    if result.refresh_index:
+                        rejected.append((pending, result))
+                        continue
                     _lifecycle.on_apply(pending.plan.eval_id)
                     pending.future.set_result(result)
                     continue
@@ -705,7 +724,23 @@ class Planner:
                 self.logger.exception("plan evaluation failed")
                 if not pending.future.done():
                     pending.future.set_exception(e)
-        return items, delta_total, snap_ok, leftovers
+        return items, delta_total, snap_ok, leftovers, rejected
+
+    @staticmethod
+    def _respond_rejected(rejected: List[Tuple[PendingPlan, PlanResult]],
+                          index: int) -> None:
+        """Answer fully rejected plans with a refresh index no older than
+        ``index``, the commit of every plan the evaluation saw as
+        applied: a worker that re-plans from a snapshot at the committed
+        index alone can miss the in-flight plan it conflicted with, pick
+        the same ports or capacity again and be rejected again, until
+        its attempts run out and its eval waits, blocked, for the
+        periodic retry of failed evals."""
+        for pending, result in rejected:
+            result.refresh_index = max(result.refresh_index, index)
+            _lifecycle.on_apply(pending.plan.eval_id)
+            if not pending.future.done():
+                pending.future.set_result(result)
 
     def _fold_optimistic(self, snap, payload: dict) -> bool:
         """Optimistic application to the applier's private snapshot: the
@@ -744,11 +779,14 @@ class Planner:
             self.logger.exception("optimistic snapshot apply failed")
             return False
 
-    def _dispatch_batch(self, items: List[Tuple[PendingPlan, PlanResult, dict]]) -> Future:
+    def _dispatch_batch(self, items: List[Tuple[PendingPlan, PlanResult, dict]],
+                        rejected: Sequence[Tuple[PendingPlan, PlanResult]] = ()) -> Future:
         """Fire ONE raft apply for the whole batch (plan_apply.go
         applyPlan + asyncPlanWait, batched): respond to every waiting
         worker from the apply waiter; the returned future resolves to
-        the committed index (0 on failure)."""
+        the committed index (0 on failure). The plans of the same
+        evaluation that were rejected whole (``rejected``) are answered
+        after the commit, their refresh index raised to it."""
         payloads = [payload for _, _, payload in items]
         index_future: Future = Future()
 
@@ -788,12 +826,14 @@ class Planner:
                             alloc.modify_index = stored.modify_index
                     _lifecycle.on_apply(payload["eval_id"])
                     pending.future.set_result(result)
+                self._respond_rejected(rejected, index)
                 index_future.set_result(index)
             except Exception as e:  # noqa: BLE001
                 self.logger.exception("raft apply of plan batch failed")
                 for pending, _, _ in items:
                     if not pending.future.done():
                         pending.future.set_exception(e)
+                self._respond_rejected(rejected, 0)
                 index_future.set_result(0)
 
         threading.Thread(target=waiter, name="plan-apply-wait", daemon=True).start()

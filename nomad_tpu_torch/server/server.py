@@ -13,11 +13,11 @@ into the PyTorch port, which imports nothing of ``nomad_tpu``. Changes:
 the placement engine, the workers' schedulers and the ``DeviceBatcher``
 run on, and asking for CUDA where there is none raises at construction
 (pass ``"cpu"`` for the plain PyTorch path); ``device_mesh=True`` with
-more than one visible CUDA device shards each batch's evals over them
+more than one visible CUDA device shards each batch's evals, and where
+the grid has ``nodes > 1`` their node tables, over them
 (``parallel.sharding``; the reference's ``except Exception`` that ran
-unsharded on any error is gone, and a grid with ``nodes > 1`` raises
-``NotImplementedError``), while a CPU server or a single card runs
-unsharded, as a JAX server on one device does;
+unsharded on any error is gone), while a CPU server or a single card
+runs unsharded, as a JAX server on one device does;
 the leader drains the broker's failed queue every
 ``FAILED_EVAL_REAP_INTERVAL_S`` (1 s) instead of on the 60 s unblock
 cadence, and on the same tick cancels the evals the broker superseded
@@ -199,8 +199,8 @@ class ServerConfig:
     device_batch_idle_ms: float = 3.0
     # shard the eval batch over an ("evals", "nodes") device mesh when
     # several CUDA devices are visible (parallel.sharding.make_mesh with
-    # eval_parallel = min(device_batch, devices); a grid with nodes > 1
-    # raises, the node axis not being ported)
+    # eval_parallel = min(device_batch, devices); the rest of the devices
+    # split each eval's node tables)
     device_mesh: bool = False
     # torch device of the placement engine, the schedulers and the
     # device batcher: CUDA unless the caller asks for the CPU

@@ -38,13 +38,13 @@ Port of ``nomad_tpu/tpu/batcher.py``: ``pad_encoded``,
   * the bucket-padding copies of a batch have every task group
     pre-failed, so each of their steps is skipped;
   * a device mesh (``parallel.sharding.make_mesh``) shards the eval
-    axis only: ``DeviceBatcher(mesh=...)`` rounds ``b_pad`` up to a
-    multiple of the mesh's ``evals``, as the reference does, and
-    ``ShardLauncher`` runs each of the ``evals`` contiguous groups as its
-    own K3 launch on its own slab and stream of its device (without a
-    mesh, a batch is the one shard of a one-entry mesh); a mesh with
-    ``nodes > 1`` raises ``NotImplementedError`` when the batcher is
-    built (ROADMAP.md Queue 1, the node axis).
+    axis and the node axis: ``DeviceBatcher(mesh=...)`` rounds ``b_pad``
+    up to a multiple of the mesh's ``evals`` and ``n_pad`` to one of its
+    ``nodes``, as the reference does, and ``ShardLauncher`` runs each of
+    the ``evals`` contiguous groups as its own K3 launch on its own slab
+    and stream of its device, or, with ``nodes > 1``, over node shards
+    whose exchanges go between launches (without a mesh, a batch is the
+    one shard of a one-entry mesh).
 
 The chunked tier's evals do not come here: the engine runs them one by
 one through ``kernels.chunk_scan`` (``engine.run_chunked``), which
@@ -273,9 +273,11 @@ def pad_encoded(enc: EncodedEval, n_pad: int, g_pad: int, s_pad: int,
     return static, carry, xs
 
 
-def batch_dims(encs: List[EncodedEval]) -> Dict[str, object]:
+def batch_dims(encs: List[EncodedEval], nodes: int = 1) -> Dict[str, object]:
     """The shared bucketed dims of a batch of evals of one dtype:
-    ``pad_encoded``'s keyword arguments."""
+    ``pad_encoded``'s keyword arguments. ``n_pad`` is rounded up to a
+    multiple of ``nodes``, the mesh's node axis, as the reference rounds
+    it (``nomad_tpu/tpu/batcher.py:784-795``)."""
     # G always gets a padded slot so padded steps have a pre-failed TG to
     # point at
     g_pad = _pow2ceil(max(e.g for e in encs) + 1)
@@ -295,8 +297,9 @@ def batch_dims(encs: List[EncodedEval]) -> Dict[str, object]:
     # co-batched eval preempts
     prec_raw = max(e.static[20].shape[1] for e in encs)
     prec_pad = _pow2ceil(prec_raw) if prec_raw else 0
+    n_pad = max(_round_up(e.n_real) for e in encs)
     return dict(
-        n_pad=max(_round_up(e.n_real) for e in encs), g_pad=g_pad,
+        n_pad=-(-n_pad // nodes) * nodes, g_pad=g_pad,
         s_pad=_pow2ceil(s_raw) if s_raw else 0,
         v_pad=_pow2ceil(max(max(e.v for e in encs), 2)), p_pad=p_pad,
         dtype=encs[0].dtype, d_pad=d_pad,
@@ -483,51 +486,65 @@ def pack_batch(encs: List[EncodedEval], dims: Dict[str, object], b_pad: int,
 
 
 class ShardLauncher:
-    """The eval axis of a ``parallel.sharding.Mesh``: a batch of ``b_pad``
-    slots (a multiple of the mesh's ``evals``) splits into ``evals``
-    contiguous groups of ``b_pad / evals``. Each group is packed into its
-    own host slab (pinned on CUDA; ``pack_batch``) and run as its own K3
-    launch (``kernels.place_scan_batched_packed``, whose launch plan is
-    made for the group's own B) on its own stream of its device; a group
-    with no real eval is not launched. Every launched shard is
-    synchronized and the outputs come back concatenated in eval order,
-    the filler evals dropped. A shard's error propagates: nothing runs
-    unsharded, on the host or through the plain version instead (on the
-    CPU the plain version is what a CPU shard runs). A ``DeviceBatcher``
-    given no mesh runs every batch through a one-entry mesh of its
-    device: one shard, one launch.
+    """A ``parallel.sharding.Mesh`` over a batch. The eval axis: a batch
+    of ``b_pad`` slots (a multiple of the mesh's ``evals``) splits into
+    ``evals`` contiguous groups of ``b_pad / evals``; a group with no
+    real eval is not launched. Every launched shard is synchronized and
+    the outputs come back concatenated in eval order, the filler evals
+    dropped. A shard's error propagates: nothing runs unsharded, on the
+    host or through the plain version instead (on the CPU the plain
+    version is what a CPU shard runs). A ``DeviceBatcher`` given no mesh
+    runs every batch through a one-entry mesh of its device: one shard,
+    one launch.
 
-    A mesh with ``nodes > 1`` raises ``NotImplementedError``: splitting
-    one eval's node tables over devices is not ported."""
+    With ``nodes`` = 1 each group is packed into its own host slab
+    (pinned on CUDA; ``pack_batch``) and run as its own K3 launch
+    (``kernels.place_scan_batched_packed``, whose launch plan is made for
+    the group's own B) on its own stream of its device.
+
+    With ``nodes`` > 1 each group's padded node axis (``n_pad``, a
+    multiple of ``nodes``: ``batch_dims``) splits further into
+    ``parallel.sharding.node_slices``: shard ``j`` of group ``k`` runs on
+    ``mesh.devices[k, j]`` with its own slab (``pack_node_shards``: the
+    node-axis arrays sliced, the rest whole) and stream, and the step
+    loop runs on the host: for every step, phases A, B and C
+    (``kernels.place_scan_nodes_phase``), each one launch a shard.
+    Before a phase, each shard's stream waits on the events the group's
+    other shards recorded after their previous phase; after it, the
+    shard copies its row of the phase's partials into every other
+    shard's gathered buffer (``Tensor.copy_``, peer or same device) on
+    its own stream and records its event. No launch waits on another:
+    every exchange between shards is in stream order, between launches,
+    so it runs alike on one card given several times, on several cards
+    and on the CPU. A mesh that names one card several times runs this
+    path too. The outputs come from shard 0 (the evict rows from each
+    chosen node's owner)."""
 
     def __init__(self, mesh) -> None:
         ep, nn = int(mesh.shape["evals"]), int(mesh.shape["nodes"])
-        if nn > 1:
-            raise NotImplementedError(
-                f"a device mesh with nodes={nn} > 1 splits one eval's node "
-                "tables over devices, which is not ported (ROADMAP.md "
-                "Queue 1, the node axis); give eval_parallel = the device "
-                "count for an (n, 1) mesh")
-        # a shard is a run of whole evals: every slab entry's eval axis
-        # leads (parallel.sharding.batched_scan_shardings)
-        self.ep = ep
-        self.devices = [resolve_device(d) for d in mesh.devices[:, 0]]
-        self._slabs = [HostSlab(pin=d.type == "cuda") for d in self.devices]
-        self._streams: List[Optional[torch.cuda.Stream]] = [None] * ep
+        # a shard is a run of whole evals (every slab entry's eval axis
+        # leads, parallel.sharding.batched_scan_shardings), and with a
+        # node axis a slice of their nodes
+        self.ep, self.nodes = ep, nn
+        self.grid = [[resolve_device(d) for d in row] for row in mesh.devices]
+        self._slabs = [[HostSlab(pin=d.type == "cuda") for d in row] for row in self.grid]
+        # the group's whole padded batch, written once and then sliced
+        self._whole = [HostSlab(pin=False) for _ in range(ep)] if nn > 1 else []
+        self._streams: List[List[Optional[torch.cuda.Stream]]] = [[None] * nn for _ in range(ep)]
 
     def round_batch(self, b: int) -> int:
         """``b`` rounded up to a multiple of the eval axis."""
         return -(-b // self.ep) * self.ep
 
-    def _stream(self, k: int):
-        """Shard ``k``'s own CUDA stream made current (created at its
+    def _stream(self, k: int, j: int = 0):
+        """Shard ``(k, j)``'s own CUDA stream made current (created at its
         first launch); a no-op on the CPU."""
-        dev = self.devices[k]
+        dev = self.grid[k][j]
         if dev.type != "cuda":
             return contextlib.nullcontext()
-        if self._streams[k] is None:
-            self._streams[k] = torch.cuda.Stream(device=dev)
-        return torch.cuda.stream(self._streams[k])
+        if self._streams[k][j] is None:
+            self._streams[k][j] = torch.cuda.Stream(device=dev)
+        return torch.cuda.stream(self._streams[k][j])
 
     def __call__(self, encs: List[EncodedEval], dims: Dict[str, object], b_pad: int,
                  times: Optional[Dict[str, float]] = None, launched: Optional[list] = None):
@@ -539,32 +556,43 @@ class ShardLauncher:
         if b_pad % self.ep or b_pad < len(encs):
             raise ValueError(f"ShardLauncher: b_pad {b_pad} is not a multiple of "
                              f"{self.ep} holding {len(encs)} evals")
-        from ..utils import phases as _phases
-
-        if any(d.type == "cuda" for d in self.devices):
+        if dims["n_pad"] % self.nodes:
+            raise ValueError(f"ShardLauncher: n_pad {dims['n_pad']} is not a multiple of "
+                             f"the node axis {self.nodes} (batch_dims(encs, nodes))")
+        if any(d.type == "cuda" for row in self.grid for d in row):
             kernels.build_all()
         times = {} if times is None else times
         per = b_pad // self.ep
+        groups = [(k, encs[k * per:(k + 1) * per]) for k in range(self.ep)]
+        groups = [(k, g) for k, g in groups if g]
+        if self.nodes > 1:
+            outs = self._run_node_shards(groups, dims, per, times, launched)
+        else:
+            outs = self._run_eval_shards(groups, dims, per, times, launched)
+        b = len(encs)
+        return tuple(np.concatenate([o[i] for o in outs])[:b] for i in range(5))
+
+    def _run_eval_shards(self, groups, dims, per, times, launched):
+        """One K3 launch a group (``nodes`` = 1)."""
+        from ..utils import phases as _phases
+
         launch_ms = 0.0
         runs = []
-        for k in range(self.ep):
-            group = encs[k * per:(k + 1) * per]
-            if not group:
-                break
+        for k, group in groups:
             with self._stream(k):
                 # the slab write (pad_stack) and its one copy in (device)
-                packed = pack_batch(group, dims, per, self.devices[k], self._slabs[k], times)
+                packed = pack_batch(group, dims, per, self.grid[k][0], self._slabs[k][0], times)
                 with _phases.track("device"):
                     t0 = time.perf_counter()
                     runs.append((k, kernels.place_scan_batched_packed(packed)))
                     launch_ms += (time.perf_counter() - t0) * 1e3
             if launched is not None:
-                launched.append(self.devices[k])
+                launched.append(self.grid[k][0])
         with _phases.track("device"):
             t1 = time.perf_counter()
             for k, _ in runs:
-                if self.devices[k].type == "cuda":
-                    self._streams[k].synchronize()
+                if self.grid[k][0].type == "cuda":
+                    self._streams[k][0].synchronize()
             t2 = time.perf_counter()
             outs = []
             for k, (out, out_layout) in runs:
@@ -573,8 +601,151 @@ class ShardLauncher:
             t3 = time.perf_counter()
         times["launch"] = launch_ms + (t2 - t1) * 1e3
         times["d2h"] = (t3 - t2) * 1e3
-        b = len(encs)
-        return tuple(np.concatenate([o[i] for o in outs])[:b] for i in range(5))
+        return outs
+
+    def _run_node_shards(self, groups, dims, per, times, launched):
+        """Each group over ``nodes`` node shards, the phase loop on the
+        host (``run_node_phases``)."""
+        from ..utils import phases as _phases
+
+        nn = self.nodes
+        rows, keys = [], []
+        for k, group in groups:
+            rows.append(pack_node_shards(group, dims, per, self.grid[k], self._whole[k],
+                                         self._slabs[k],
+                                         [self._stream(k, j) for j in range(nn)], times))
+            keys.append(k)
+            if launched is not None:
+                launched.extend(self.grid[k])
+        with _phases.track("device"):
+            return run_node_phases(rows, lambda r, j: self._stream(keys[r], j),
+                                   int(dims["p_pad"]), times)
+
+
+def run_node_phases(rows, stream_of, p_count: int,
+                    times: Optional[Dict[str, float]] = None) -> List[tuple]:
+    """The node-sharded scan's step loop over ``rows`` (each the
+    ``kernels.NodeShard``s of one eval group, in shard order; several
+    groups run side by side): for every step, phases A, B and C, each
+    one ``kernels.place_scan_nodes_phase`` launch a shard on its stream
+    (``stream_of(row, shard)``: a context that makes it current), then a
+    last phase A that takes in the last step's partials 3. Before a
+    phase every shard's stream waits on the events its group's other
+    shards recorded after their previous phase (all of a phase's waits
+    are enqueued before any of its records); after it, each shard
+    copies its row of the phase's partials into the others' gathered
+    buffers on its own stream and records its event. Then every stream
+    is synchronized and each group's outputs come back: ``(chosen,
+    scores, pulls, skipped, evict)`` of shard 0, the evict rows from each
+    chosen node's owner. ``times`` gains the host ms of the loop with its
+    synchronize (``launch``) and of the copies back (``d2h``)."""
+    events = [[torch.cuda.Event() if sh.buf.device.type == "cuda" else None for sh in row]
+              for row in rows]
+    t0 = time.perf_counter()
+    for p in range(p_count + 1):
+        for phase in range(kernels.NODE_PHASES):
+            if p == p_count and phase:
+                break
+            for r, row in enumerate(rows):
+                _node_phase(row, events[r], lambda j: stream_of(r, j), phase, p,
+                            first=p == 0 and phase == 0)
+    for r, row in enumerate(rows):
+        for j, sh in enumerate(row):
+            if sh.buf.device.type == "cuda":
+                with stream_of(r, j):
+                    torch.cuda.current_stream(sh.buf.device).synchronize()
+    t1 = time.perf_counter()
+    outs = []
+    for r, row in enumerate(rows):
+        got = []
+        for j, sh in enumerate(row):
+            with stream_of(r, j):
+                got.append(sh.outputs())
+        evict = got[0][4]
+        for o in got[1:]:
+            evict = np.maximum(evict, o[4])
+        outs.append((*got[0][:4], evict))
+    if times is not None:
+        times["launch"] = times.get("launch", 0.0) + (t1 - t0) * 1e3
+        times["d2h"] = times.get("d2h", 0.0) + (time.perf_counter() - t1) * 1e3
+    return outs
+
+
+def _node_phase(row, events, stream_of, phase: int, p: int, first: bool) -> None:
+    """One phase of one step on every node shard of one group
+    (``run_node_phases``)."""
+    nn = len(row)
+    if not first:
+        for j, sh in enumerate(row):
+            if events[j] is None:
+                continue
+            with stream_of(j):
+                st = torch.cuda.current_stream(sh.buf.device)
+                for i in range(nn):
+                    if i != j and events[i] is not None:
+                        st.wait_event(events[i])
+    for j, sh in enumerate(row):
+        with stream_of(j):
+            kernels.place_scan_nodes_phase(sh, phase, p)
+            own = sh.gath[phase][j]
+            for i, other in enumerate(row):
+                if i != j and own.numel():
+                    other.gath[phase][j].copy_(own, non_blocking=True)
+            if events[j] is not None:
+                events[j].record()
+
+
+def pack_node_shards(encs: List[EncodedEval], dims: Dict[str, object], b_pad: int,
+                     devices, whole: HostSlab, slabs, streams,
+                     times: Optional[Dict[str, float]] = None) -> List["kernels.NodeShard"]:
+    """The batch ``pack_batch`` makes, split over ``len(devices)`` node
+    shards (``parallel.sharding.node_slices`` of ``dims["n_pad"]``): the
+    padded, stacked batch is written once into ``whole``, then each
+    shard's arrays (every node axis cut to its slice,
+    ``node_shard.slice_nodes``; the rest whole) and the batch's
+    replicated ``node_shard.evict_vids`` go into its own slab and over
+    to its device with one copy, on its stream (``streams``: one context
+    a shard). ``times`` gains ``slab`` and ``h2d`` as ``pack_batch``'s."""
+    from ..parallel.sharding import node_slices
+    from ..utils import phases as _phases
+    from . import node_shard
+
+    nn = len(devices)
+    t0 = time.perf_counter()
+    with _phases.track("pad_stack"):
+        _layout, _nbytes, blocks = _write_slab(encs, dims, b_pad, whole)
+        kernels._check_batched(blocks[kernels.SCAN_STATIC], blocks[kernels.SCAN_CARRY],
+                               blocks[kernels.SCAN_XS])
+        ev = node_shard.evict_vids(*(torch.from_numpy(blocks[i]) for i in (9, 40, 42))).numpy()
+        parts = []
+        for lo, hi in node_slices(int(dims["n_pad"]), nn):
+            arrays = [*node_shard.slice_nodes(blocks, lo, hi, batched=True), ev]
+            parts.append((lo, _write_arrays(arrays, slabs[len(parts)])))
+    t1 = time.perf_counter()
+    out = []
+    with _phases.track("device"):
+        for j, (lo, (layout, nbytes)) in enumerate(parts):
+            with streams[j]:
+                buf = slabs[j].to_device(nbytes, devices[j])
+                out.append(kernels.NodeShard(buf, layout, lo, j, nn))
+    if times is not None:
+        times["slab"] = times.get("slab", 0.0) + (t1 - t0) * 1e3
+        times["h2d"] = times.get("h2d", 0.0) + (time.perf_counter() - t1) * 1e3
+    return out
+
+
+def _write_arrays(arrays, slab: HostSlab):
+    """Each numpy array into ``slab`` at a 16-byte offset, in order
+    (``convert.put_bytes``); returns the layout and its end."""
+    layout, off = [], 0
+    for a in arrays:
+        off = -(-off // 16) * 16
+        layout.append((off, a.dtype, tuple(a.shape)))
+        off += a.nbytes
+    mv = memoryview(slab.take(off))
+    for (o, _dt, _shape), a in zip(layout, arrays):
+        put_bytes(mv, o, a)
+    return layout, off
 
 
 class _Request:
@@ -601,9 +772,9 @@ class DeviceBatcher:
                  idle_ms: float = 0.0, queue_max: int = 4096,
                  device: DeviceLike = "cuda", mesh=None) -> None:
         self.device = resolve_device(device)
-        # eval-sharded batches over a parallel.sharding.Mesh (raises for
-        # nodes > 1); None runs each batch as one launch on ``device``,
-        # the one-entry mesh's one shard
+        # batches sharded over a parallel.sharding.Mesh (evals, and with
+        # nodes > 1 each eval's node tables); None runs each batch as one
+        # launch on ``device``, the one-entry mesh's one shard
         self.mesh = mesh
         self._shards = ShardLauncher(
             mesh if mesh is not None else make_mesh(1, devices=[self.device]))
@@ -890,7 +1061,7 @@ class DeviceBatcher:
         t_start = metrics.now()
         encs = [r.enc for r in batch]
         # shared bucketed dims; the dispatch loop groups by dtype
-        dims = batch_dims(encs)
+        dims = batch_dims(encs, self._shards.nodes)
         b = len(encs)
         # Three batch buckets — 1, max/4, max.
         b_pad = min(x for x in self._buckets() if x >= b)

@@ -60,6 +60,7 @@ import torch
 from . import chunk as _chunk
 from . import convert
 from . import forced as _forced
+from . import node_shard as _node_shard
 from . import step as _step
 from .preempt import C_MAX, GP_MAX
 
@@ -68,7 +69,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {"place_scan": CSRC / "place_scan.cu", "forced_eval": CSRC / "forced_eval.cu",
-           "chunk_scan": CSRC / "chunk_scan.cu"}
+           "chunk_scan": CSRC / "chunk_scan.cu", "place_scan_nodes": CSRC / "place_scan_nodes.cu"}
 #: kernel name -> (source library, C entry point)
 KERNELS = {
     "place_scan": ("place_scan", "place_scan_launch"),
@@ -76,6 +77,8 @@ KERNELS = {
     "forced_eval": ("forced_eval", "forced_eval_launch"),
     "forced_eval_f32": ("forced_eval", "forced_eval_f32_launch"),
     "chunk_scan": ("chunk_scan", "chunk_scan_launch"),
+    "place_scan_nodes": ("place_scan_nodes", "place_scan_nodes_launch"),
+    "place_scan_nodes_f32": ("place_scan_nodes", "place_scan_nodes_f32_launch"),
 }
 
 #: kernel launches since the last reset, by kernel name; the int scan's
@@ -573,12 +576,35 @@ class ChunkArgs(ctypes.Structure):
                 + [(f, ctypes.c_void_p) for f in _CHUNK_PTR_FIELDS])
 
 
+_NODES_INT_FIELDS = ("B", "N", "D", "G", "S", "V", "K", "DP", "V2", "P",
+                     "has_reserved", "has_aff", "has_evict", "has_forced", "has_pre", "C", "GP",
+                     "lo", "nodes", "shard", "W2")
+#: the node-sharded scan's pointers: the scan's inputs (the shard's
+#: slices and replicas) and outputs, the replicated evict value ids, the
+#: shard's scratch (each node's score, flags and greedy order, each
+#: spread's statistics) and its three gathered partial buffers
+_NODES_PTR_FIELDS = (
+    *(f for f in _PTR_FIELDS if f not in ("arena", "sections")), "ev_vids",
+    "score", "flags", "sel_ord", "stat", "gath1", "gath2", "gath3",
+)
+
+
+class NodesArgs(ctypes.Structure):
+    """Mirror of ``struct NodesArgs`` in place_scan_nodes.cu."""
+
+    _fields_ = ([(f, ctypes.c_int) for f in _NODES_INT_FIELDS]
+                + [(f, ctypes.c_void_p) for f in _NODES_PTR_FIELDS])
+
+
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    args_t = {"place_scan": ScanArgs, "forced_eval": ForcedArgs, "chunk_scan": ChunkArgs}[name]
+    args_t = {"place_scan": ScanArgs, "forced_eval": ForcedArgs, "chunk_scan": ChunkArgs,
+              "place_scan_nodes": NodesArgs}[name]
     for source, entry in KERNELS.values():
         if source == name:
             fn = getattr(lib, entry)
-            fn.argtypes = [ctypes.POINTER(args_t), ctypes.c_void_p]
+            # the node-sharded scan also takes its phase and step
+            extra = [ctypes.c_int] * 2 if name == "place_scan_nodes" else []
+            fn.argtypes = [ctypes.POINTER(args_t), *extra, ctypes.c_void_p]
             fn.restype = ctypes.c_int
     if name == "chunk_scan":
         lib.chunk_scan_max_clusters.argtypes = [ctypes.c_int] * 2
@@ -1287,6 +1313,136 @@ def place_scan_batched_work(static_b, carry_b, xs_b, skipped_b=None,
         nbytes += nb
         ops += op
     return nbytes, ops
+
+
+# -- place_scan_nodes: the node axis ------------------------------------------
+
+#: bytes of one spread's statistics in a node shard's scratch
+NODE_STAT_BYTES = 32
+#: the phases of a step of the node-sharded scan: A, B, C (``node_shard``)
+NODE_PHASES = 3
+
+
+class NodeShard:
+    """One node shard of an eval group's batch, on its device, for
+    ``place_scan_nodes_phase``: ``buf`` holds the 48 scan arrays (every
+    node axis cut to the shard's slice, everything else whole, each with
+    the group's leading eval axis; ``layout`` in ``SCAN_*`` order) and
+    the replicated ``node_shard.evict_vids`` of each eval (``[B, P,
+    S]``, last); ``lo`` is the slice's first global node, ``shard`` its
+    place among ``nodes``. Made here: ``gath``, the three gathered
+    partial buffers ``[nodes, B, W]`` (row ``shard`` is this shard's
+    own; the launcher copies it into the other shards' between phases;
+    partials 3 start at -1), ``out`` with ``out_layout`` (``chosen,
+    scores, pulls, skipped, evict``, each ``[B, P, ...]``: shard 0
+    writes the step outputs, the owner of a chosen node its evict row,
+    every other byte stays 0xFF) and on CUDA the scratch the phases
+    leave each other."""
+
+    def __init__(self, buf: torch.Tensor, layout: convert.Layout, lo: int, shard: int,
+                 nodes: int) -> None:
+        self.buf, self.layout, self.lo, self.shard, self.nodes = buf, layout, lo, shard, nodes
+        # the shapes and dtypes alone, checked as a batch's arrays are
+        shapes = [np.broadcast_to(np.zeros((), dt), shape) for _o, dt, shape in layout[:48]]
+        self.dims = m = _check_batched(shapes[SCAN_STATIC], shapes[SCAN_CARRY], shapes[SCAN_XS])
+        B, P, S, DP, C, N = m["B"], m["P"], m["S"], m["DP"], m["C"], m["N"]
+        if layout[48][2] != (B, P, S) or layout[48][1] != np.int32:
+            raise ValueError(f"NodeShard: evict value ids {layout[48][2]}, want {(B, P, S)}")
+        self.float_arm = layout[0][1] == np.float32
+        self.w2 = _node_shard.w2(S, DP)
+        dev = buf.device
+        self.gath = (torch.empty((nodes, B, _node_shard.W1), dtype=I32, device=dev),
+                     torch.empty((nodes, B, self.w2), dtype=I32, device=dev),
+                     torch.full((nodes, B, C), -1, dtype=I32, device=dev))
+        self.out_layout, end = _scan_out_layout(B, P, C, self.float_arm)
+        self.out = torch.full((end,), 255, dtype=U8, device=dev)
+        self._scratch = self._args = self._plain = None
+        if dev.type == "cuda":
+            score_b = 4 if self.float_arm else 8
+            parts = ((np.uint8, (B, N * score_b)), (np.uint8, (B, N)),
+                     (np.uint8, (B, N * 16 if C else 0)), (np.uint8, (B, S * NODE_STAT_BYTES)))
+            self._scratch_layout, send = _out_layout(parts)
+            self._scratch = torch.empty((max(send, 1),), dtype=U8, device=dev)
+
+    def outputs(self) -> Tuple[np.ndarray, ...]:
+        """``(chosen, scores, pulls, skipped, evict)`` brought back with
+        one copy (on CUDA on the current stream, then synchronized)."""
+        return convert.from_device_packed(self.out, self.out_layout)
+
+    def _plain_shards(self):
+        """Per eval, the plain version's ``node_shard.ShardScan`` over
+        views of ``buf`` (the carry updated in place) and of ``out``."""
+        if self._plain is None:
+            v = convert.unpack(self.buf, self.layout)
+            ys = convert.unpack(self.out, self.out_layout)
+            self._plain = [
+                _node_shard.ShardScan(tuple(t[b] for t in v[SCAN_STATIC]),
+                                      tuple(t[b] for t in v[SCAN_CARRY]),
+                                      tuple(t[b] for t in v[SCAN_XS]), v[48][b], self.lo,
+                                      self.shard, tuple(y[b] for y in ys))
+                for b in range(self.dims["B"])]
+        return self._plain
+
+    def _launch_args(self) -> "NodesArgs":
+        if self._args is None:
+            m = dict(self.dims, lo=self.lo, nodes=self.nodes, shard=self.shard, W2=self.w2)
+            base, obase = self.buf.data_ptr(), self.out.data_ptr()
+            ptrs = {k: base + self.layout[i][0] for k, i in _SCAN_INPUTS.items()}
+            ptrs["ev_vids"] = base + self.layout[48][0]
+            ptrs.update({k: obase + o for k, (o, _dt, _s) in
+                         zip(("chosen", "scores", "pulls", "skipped", "evict_out"),
+                             self.out_layout)})
+            sbase = self._scratch.data_ptr()
+            ptrs.update({k: sbase + o for k, (o, _dt, _s) in
+                         zip(("score", "flags", "sel_ord", "stat"), self._scratch_layout)})
+            ptrs.update(gath1=self.gath[0].data_ptr(), gath2=self.gath[1].data_ptr(),
+                        gath3=self.gath[2].data_ptr())
+            if ptrs["pre_res"] % 16:
+                raise ValueError("NodeShard: pre_res is not 16-byte aligned")
+            self._args = NodesArgs(**{k: m[k] for k in _NODES_INT_FIELDS},
+                                   **{k: ptrs[k] for k in _NODES_PTR_FIELDS})
+        return self._args
+
+
+def place_scan_nodes_phase(sh: NodeShard, phase: int, p: int) -> None:
+    """One launch of the node-sharded scan: ``phase`` (0, 1, 2: A, B, C
+    of ``node_shard``) of step ``p`` for every eval of the shard, on the
+    current stream. Phase A reads the gathered partials 3 and writes the
+    shard's row of partials 1, phase B reads partials 1 and writes its
+    row of partials 2, phase C reads partials 2 and writes its row of
+    partials 3; a phase A at ``p`` = P only takes in the last step's
+    partials 3. The launch waits on nothing: the caller orders the
+    shards' phases by stream order and events, the partials copied
+    between them. On the CPU the plain version (``node_shard``) runs,
+    eval by eval; on CUDA the kernel (``csrc/place_scan_nodes.cu``),
+    counted as ``place_scan_nodes`` / ``place_scan_nodes_f32``."""
+    if phase not in (0, 1, 2) or not 0 <= p <= sh.dims["P"] or (phase and p == sh.dims["P"]):
+        raise ValueError(f"place_scan_nodes_phase: no phase {phase} of step {p}")
+    dev = sh.buf.device
+    if dev.type == "cpu":
+        g1, g2, g3 = sh.gath
+        for b, scan in enumerate(sh._plain_shards()):
+            if phase == 0:
+                g1[sh.shard, b] = scan.phase_a(p, g3[:, b])
+            elif phase == 1:
+                g2[sh.shard, b] = scan.phase_b(g1[:, b])
+            else:
+                g3[sh.shard, b] = scan.phase_c(p, g2[:, b])
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"place_scan_nodes_phase: unsupported device {dev}")
+    name = "place_scan_nodes_f32" if sh.float_arm else "place_scan_nodes"
+    source, entry = KERNELS[name]
+    lib = _lib(source)
+    args = sh._launch_args()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, entry)(ctypes.byref(args), phase, p, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: {lib.place_scan_nodes_error_string(err).decode()}")
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 # -- chunk_scan (K5) ----------------------------------------------------------

@@ -196,6 +196,35 @@ def test_agent_boots_from_config_file(tmp_path):
         a.shutdown()
 
 
+@pytest.mark.parametrize("value, seconds", [('"60s"', 60.0), ('"1m30s"', 90.0),
+                                            ('"500ms"', 0.5)])
+def test_heartbeat_grace_reaches_the_server(tmp_path, value, seconds):
+    """The server stanza's ``heartbeat_grace`` (a Go duration, as in
+    Nomad's) sets how long a node may outlive its TTL on the agent's
+    server; without it the server keeps its 10 s."""
+    f = tmp_path / "grace.hcl"
+    f.write_text('device = "cpu"\nports {\n  http = 0\n  rpc = 0\n}\n'
+                 f"server {{\n  enabled = true\n  heartbeat_grace = {value}\n}}\n")
+    cfg = load_agent_config([str(f)])
+    assert cfg.heartbeat_grace == seconds
+    assert load_agent_config([]).heartbeat_grace == 10.0
+    cfg.dev_mode = True
+    a = Agent(cfg)
+    a.start()
+    try:
+        assert a.server.config.heartbeat_grace == seconds
+        assert a.server.heartbeaters.grace == seconds
+    finally:
+        a.shutdown()
+
+
+def test_bad_heartbeat_grace_fails_loudly(tmp_path):
+    f = tmp_path / "bad.hcl"
+    f.write_text('server {\n  heartbeat_grace = "soon"\n}\n')
+    with pytest.raises(ConfigError, match="heartbeat_grace"):
+        load_agent_config([str(f)])
+
+
 def test_cli_flags_override_file(tmp_path):
     """defaults < files < flags, via the real CLI path."""
     from nomad_tpu_torch.cli.main import main as cli_main

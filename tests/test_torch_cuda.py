@@ -736,3 +736,60 @@ job "card" {
                                                           "dev agent")
     assert held == len(launches) and evals >= 1
     assert worst <= parity.FLOAT_SCORE_TOL
+
+
+@pytest.mark.parametrize("nodes", [1, 2, 4])
+@pytest.mark.parametrize("arm", ["int", "float", "has_pre"])
+def test_node_kernel_equals_plain(cuda, arm, nodes):
+    """The node-sharded kernel (``kernels.place_scan_nodes_phase``: one
+    launch a shard, phase and step, the partials copied between the
+    shards' streams) over the card given ``nodes`` times, through the
+    batcher's ``ShardLauncher``: every launch counted, no K3 launch, and
+    each eval's outputs equal to the plain node-sharded version
+    (``node_shard.place_scan_nodes`` on the CPU, the same padded arrays;
+    int arms bit for bit, the float arm within ``tpu/parity.py``, since
+    the CPU's ``pow`` is not CUDA's ``powf``) and bit for bit to the
+    unsharded K3 launch."""
+    from nomad_tpu_torch.tpu import node_shard
+    from nomad_tpu_torch.tpu.batcher import (batch_dims, pack_node_shards, pad_encoded,
+                                             run_node_phases)
+    from nomad_tpu_torch.tpu.convert import HostSlab
+    from nomad_tpu_torch.tpu.engine import EncodedEval
+
+    variant, dtype = {"int": ("all", np.int32), "float": ("all", np.float32),
+                      "has_pre": ("preempt", np.int32)}[arm]
+    encs = []
+    for seed, n in ((1, 700), (2, 650)):
+        n_pad, st, ca, xs = example_scan_variant(variant, n_nodes=n, n_tgs=3, n_placements=64,
+                                                 seed=seed, dtype=dtype)
+        encs.append(EncodedEval(n_real=n, n_pad=n_pad, g=3, s=st[9].shape[1],
+                                v=st[10].shape[2], p=64, dtype=dtype, static=st, carry=ca,
+                                xs=xs, missing_list=[], nodes=[], table=None, start_ns=0))
+    dims = batch_dims(encs, nodes)
+    name = "place_scan_nodes_f32" if arm == "float" else "place_scan_nodes"
+    streams = [torch.cuda.Stream(cuda) for _ in range(nodes)]
+    before = dict(kernels.LAUNCHES)
+    row = pack_node_shards(encs, dims, 2, [cuda] * nodes, HostSlab(pin=False),
+                           [HostSlab(pin=True) for _ in range(nodes)],
+                           [torch.cuda.stream(st) for st in streams])
+    (out,) = run_node_phases([row], lambda r, j: torch.cuda.stream(streams[j]), dims["p_pad"])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] - before[name] == nodes * (3 * dims["p_pad"] + 1)
+    assert kernels.LAUNCHES["place_scan"] == before["place_scan"]
+    assert kernels.LAUNCHES["place_scan_f32"] == before["place_scan_f32"]
+    evicting = 0
+    for i, e in enumerate(encs):
+        padded = pad_encoded(e, **dims)
+        _, plain = node_shard.place_scan_nodes(
+            dims["n_pad"], *convert.scan_inputs_to_torch(*padded, "cpu"), nodes)
+        if arm == "float":
+            parity.check_float_scan(((), plain[:4]), ((), tuple(o[i] for o in out[:4])),
+                                    padded[2][0], f"eval {i} over {nodes} shards")
+        else:
+            for k, y in enumerate(plain):
+                assert np.array_equal(out[k][i], y.numpy()), (arm, nodes, i, k)
+        k3 = kernels.place_scan(dims["n_pad"], *convert.scan_inputs_to_torch(*padded, cuda))[1]
+        for k, y in enumerate(k3):
+            assert np.array_equal(out[k][i], y.cpu().numpy()), (arm, nodes, i, k, "K3")
+        evicting += int((plain[4] >= 0).any(dim=1).sum()) if plain[4].numel() else 0
+    assert arm != "has_pre" or evicting >= 1

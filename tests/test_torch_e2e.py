@@ -250,29 +250,25 @@ class TestMetricsE2E:
     def test_scheduler_counters_present(self, dev):
         api = dev.api
         job = service_job("e2e-metrics", count=2, command="sleep 300")
+        # the inmem sink aggregates in 10s intervals and /v1/metrics shows
+        # the current one: poll from the registration on, so that the
+        # interval in which this job's eval lands its scheduling counters
+        # is read while it is current (a slow "allocs running" wait
+        # under load can outlast it), and keep every name seen
+        seen = set()
+
+        def scheduler_and_plan_counters():
+            m = api.agent.metrics()
+            seen.update(c["Name"] for c in m.get("Counters", []))
+            seen.update(s["Name"] for s in m.get("Samples", []))
+            return (any("invoke_scheduler" in n for n in seen)
+                    and any("plan" in n for n in seen))
+
         api.jobs.register(job)
+        wait_until(scheduler_and_plan_counters, timeout=30, interval=0.1,
+                   msg="scheduler+plan counters in the interval they landed in")
         wait_until(lambda: len(running_allocs(api, "e2e-metrics")) == 2,
                    msg="allocs running")
-        # the inmem sink aggregates in 10s intervals: poll until the
-        # scheduling counters from this job's eval surface
-        def counter_names():
-            m = api.agent.metrics()
-            names = {c["Name"] for c in m.get("Counters", [])}
-            names |= {s["Name"] for s in m.get("Samples", [])}
-            return names
-
-        # BOTH names inside ONE polled predicate: asserting "plan" on a
-        # separate fresh fetch can land in a new 10s inmem aggregation
-        # interval that hasn't seen a plan sample yet (r3 suite-load race)
-        def scheduler_and_plan_counters():
-            names = counter_names()
-            return (
-                any("invoke_scheduler" in n for n in names)
-                and any("plan" in n for n in names)
-            )
-
-        wait_until(scheduler_and_plan_counters, timeout=30,
-                   msg="scheduler+plan counters visible in one interval")
         # prometheus format serves too
         import urllib.request
 

@@ -726,7 +726,6 @@ _BLOCKED_CLIENT_RUN = _BLOCKER + textwrap.dedent("""
         job.task_groups[0].count = count
         task = job.task_groups[0].tasks[0]
         task.driver = driver
-        task.resources.networks = []
         task.config = {{"command": "/bin/sh",
                         "args": ["-c", "echo $NOMAD_ALLOC_INDEX > $NOMAD_TASK_DIR/index"]}}
         task.restart_policy = RestartPolicy(attempts=0, mode="fail")
@@ -888,6 +887,73 @@ def test_sharded_batch_runs_with_jax_nomad_tpu_and_msgpack_blocked():
                          capture_output=True, text=True, timeout=240, env=env, cwd=str(REPO))
     assert out.returncode == 0, out.stdout + out.stderr[-4000:]
     assert "SHARDED-ISOLATED-OK" in out.stdout
+
+
+_BLOCKED_NODES_RUN = _BLOCKER + textwrap.dedent("""
+    import threading
+    import numpy as np
+    from nomad_tpu_torch.parallel import batched_place_scan, make_mesh
+    from nomad_tpu_torch.tpu import kernels
+    from nomad_tpu_torch.tpu.batcher import DeviceBatcher
+    from nomad_tpu_torch.tpu.engine import (EncodedEval, TorchPlacementEngine,
+                                            example_scan_inputs, example_scan_variant)
+
+    def enc(n_pad, static, carry, xs, n):
+        return EncodedEval(n_real=n, n_pad=n_pad, g=static[2].shape[0],
+                           s=static[9].shape[1], v=static[10].shape[2], p=xs[0].shape[0],
+                           dtype=np.int32, static=static, carry=carry, xs=xs, missing_list=[],
+                           nodes=[], table=None, start_ns=0)
+
+    phases = []
+    orig = kernels.place_scan_nodes_phase
+    def spy(sh, phase, p):
+        phases.append(sh.nodes)
+        return orig(sh, phase, p)
+    kernels.place_scan_nodes_phase = spy
+    encs = [enc(*example_scan_inputs(n_nodes=48, n_tgs=2, n_placements=6, n_spreads=1,
+                                     seed=s, dtype=np.int32), 48) for s in (1, 2, 3)]
+    singles = [TorchPlacementEngine.shared("cpu").run_scan_single(e) for e in encs]
+    b = DeviceBatcher(max_batch=4, window_ms=2000.0, device="cpu",
+                      mesh=make_mesh(4, eval_parallel=2, devices=["cpu"] * 4))
+    out = [None] * 3
+    threads = [threading.Thread(target=lambda i=i: out.__setitem__(i, b.run(encs[i])))
+               for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    b.stop()
+    assert b.stats_snapshot()["device_dispatches"] == dict(cpu=4), b.stats
+    assert phases and set(phases) == {{2}}, phases
+    for single, got in zip(singles, out):
+        for x, y in zip(single, got):
+            assert np.array_equal(x, y)
+    pre = enc(*example_scan_variant("preempt", n_nodes=40, n_tgs=3, n_placements=8, seed=2), 40)
+    single = TorchPlacementEngine.shared("cpu").run_scan_single(pre)
+    got = batched_place_scan(make_mesh(2, eval_parallel=1, devices=["cpu"] * 2))([pre])
+    assert (single[4] >= 0).any()
+    for x, y in zip(single, got):
+        assert np.array_equal(x, y[0, :pre.p])
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in
+                    ("jax", "jaxlib", "msgpack", "nomad_tpu") and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("NODES-ISOLATED-OK", flush=True)
+""")
+
+
+def test_node_sharded_batch_runs_with_jax_nomad_tpu_and_msgpack_blocked():
+    """A node-sharded ``DeviceBatcher`` batch over a (2, 2) mesh of CPU
+    entries and a preempting eval over (1, 2), in a process where
+    importing jax, anything of nomad_tpu, or msgpack fails: the node
+    shards' phases run (``tpu/node_shard.py`` through
+    ``kernels.place_scan_nodes_phase``) and each eval's result is its
+    single scan's."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_NODES_RUN.format(repo=str(REPO))],
+                         capture_output=True, text=True, timeout=240, env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stdout + out.stderr[-4000:]
+    assert "NODES-ISOLATED-OK" in out.stdout
 
 
 _BLOCKED_CLI = _BLOCKER + textwrap.dedent("""

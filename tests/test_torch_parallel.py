@@ -9,10 +9,12 @@ launch (``kernels.place_scan_batched_packed``) would on a card. Held:
 sharding table equal to the reference's ``PartitionSpec``s and to the
 packed slab's axes; an eval-sharded batch equal bit for bit to the
 unsharded single scans and to the JAX package's mesh-sharded batch (int
-arm; float arm within ``tpu/parity.py``'s bound); a node axis raises; a
+arm; float arm within ``tpu/parity.py``'s bound); a mesh with a node
+axis builds, its ``n_pad`` and node slices as ``node_slices`` gives; a
 port ``Server`` with ``device_mesh=True`` places a C1M-shaped mix as the
 JAX server with ``device_mesh=True`` does.
 """
+import contextlib
 import random
 import threading
 
@@ -31,12 +33,14 @@ from nomad_tpu.server import ServerConfig as JaxServerConfig
 
 import nomad_tpu_torch.structs.structs as tstructs
 from nomad_tpu_torch import mock
-from nomad_tpu_torch.parallel import batched_place_scan, batched_scan_shardings, make_mesh
+from nomad_tpu_torch.parallel import (
+    batched_place_scan, batched_scan_shardings, make_mesh, node_slices)
 from nomad_tpu_torch.parallel import sharding
 from nomad_tpu_torch.server import Server, ServerConfig
 from nomad_tpu_torch.structs.structs import ALLOC_DESIRED_RUN
 from nomad_tpu_torch.tpu import kernels, parity
-from nomad_tpu_torch.tpu.batcher import DeviceBatcher, batch_dims, pack_batch
+from nomad_tpu_torch.tpu.batcher import DeviceBatcher, batch_dims, pack_batch, pack_node_shards
+from nomad_tpu_torch.tpu.convert import HostSlab
 from nomad_tpu_torch.tpu.engine import EncodedEval, TorchPlacementEngine, example_scan_inputs
 
 CPUS = [torch.device("cpu")] * 8
@@ -264,12 +268,26 @@ def test_a_batch_times_its_packing_outside_the_device_phase(ep, monkeypatch):
 
 
 def test_node_axis_raises_when_the_batcher_is_built():
+    """The name is kept from when a node axis raised here: both builds
+    now succeed (the node axis is ported; ``tests/test_torch_nodes.py``
+    holds its results), and the batcher rounds ``n_pad`` up to a
+    multiple of ``nodes`` and splits it as ``node_slices`` gives."""
     mesh = cpu_mesh(4, 2)
     assert dict(mesh.shape) == {"evals": 2, "nodes": 2}
-    with pytest.raises(NotImplementedError, match="node axis"):
-        DeviceBatcher(device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="node axis"):
-        batched_place_scan(mesh)
+    assert callable(batched_place_scan(mesh))
+    mesh3 = make_mesh(6, eval_parallel=2, devices=CPUS[:6])
+    assert dict(mesh3.shape) == {"evals": 2, "nodes": 3}
+    encs = [synthetic_enc(100, 2, 5, seed=s, dtype=np.int32) for s in (1, 2)]
+    for m, nodes in ((mesh, 2), (mesh3, 3)):
+        launcher = DeviceBatcher(device="cpu", mesh=m)._shards
+        assert (launcher.ep, launcher.nodes) == (2, nodes)
+        dims = batch_dims(encs, nodes)
+        assert dims["n_pad"] == -(-128 // nodes) * nodes
+        shards = pack_node_shards(encs, dims, 2, launcher.grid[0], HostSlab(pin=False),
+                                  [HostSlab(pin=False) for _ in range(nodes)],
+                                  [contextlib.nullcontext() for _ in range(nodes)])
+        assert [(sh.lo, sh.lo + sh.dims["N"]) for sh in shards] == node_slices(dims["n_pad"],
+                                                                              nodes)
 
 
 def test_a_failed_shard_fails_the_batch_as_one_batch(monkeypatch):

@@ -409,24 +409,21 @@ def test_failed_launch_nacks_the_eval_and_places_nothing(deterministic, monkeypa
 
 
 def test_device_mesh_with_a_node_axis_is_not_ported(monkeypatch):
-    """Four GPUs reported and ``device_batch`` 2: the reference's grid is
-    (2, 2), whose node axis is not ported, so building the server raises
-    (no quiet unsharded run); ``device_batch`` 4 gives (4, 1), which
-    builds."""
-    import threading
-
+    """The name is kept from when the node axis was not ported. Four
+    GPUs reported and ``device_batch`` 2: the reference's grid is (2, 2),
+    and building the server now succeeds with that node axis (its
+    placements are held in ``tests/test_torch_nodes.py``);
+    ``device_batch`` 4 gives (4, 1)."""
     import torch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    before = threading.active_count()
-    with pytest.raises(NotImplementedError, match="nodes=2 > 1.*the node axis"):
-        Server(ServerConfig(device="cuda", device_mesh=True, device_batch=2))
-    assert threading.active_count() == before
-    s = Server(ServerConfig(device="cuda", device_mesh=True, device_batch=4))
-    assert dict(s.device_batcher.mesh.shape) == {"evals": 4, "nodes": 1}
-    assert [str(d) for d in s.device_batcher.mesh.devices.flat] == [
-        f"cuda:{i}" for i in range(4)]
+    for batch, shape in ((2, {"evals": 2, "nodes": 2}), (4, {"evals": 4, "nodes": 1})):
+        s = Server(ServerConfig(device="cuda", device_mesh=True, device_batch=batch))
+        assert dict(s.device_batcher.mesh.shape) == shape
+        assert [str(d) for d in s.device_batcher.mesh.devices.flat] == [
+            f"cuda:{i}" for i in range(4)]
+        assert s.device_batcher._shards.nodes == shape["nodes"]
 
 
 def test_device_fault_degrades_to_host_placements_equal_to_jax(monkeypatch):
@@ -491,3 +488,68 @@ def test_device_fault_degrades_to_host_placements_equal_to_jax(monkeypatch):
     assert sum(fallbacks) > 0
     assert kernels.LAUNCHES["place_scan"] == launches
     assert len(host_map) == 16 and host_map == jax_map
+
+
+def _two_jobs_on_one_node(server_cls, config, pkg_mock, apply_kind, wait_s):
+    """Two batch jobs of ``mock.job()`` (count 2, dynamic ports) on one
+    node, registered at once to a deterministic server with two
+    schedulers whose plan applies each take 0.5 s in raft: both evals
+    plan from the same snapshot and pick the same lowest free ports, so
+    the second plan is rejected while the first one's apply is in
+    flight. Returns (allocs placed per job after ``wait_s``, the evals
+    that ran out of plan attempts)."""
+    srv = server_cls(config)
+    orig = srv.raft.apply
+
+    def slow(peer, kind, payload, *a, **k):
+        if kind == apply_kind:
+            time.sleep(0.5)
+        return orig(peer, kind, payload, *a, **k)
+
+    srv.raft.apply = slow
+    jobs = []
+    for i in range(2):
+        j = pkg_mock.job()
+        j.type = "batch"
+        j.id = f"ports-{i}"
+        j.task_groups[0].count = 2
+        jobs.append(j)
+    try:
+        srv.start()
+        srv.register_node(pkg_mock.node())
+        for j in jobs:
+            srv.register_job(j)
+        deadline = time.monotonic() + wait_s
+        placed = []
+        while time.monotonic() < deadline:
+            placed = [len(srv.fsm.state.allocs_by_job(j.namespace, j.id, True)) for j in jobs]
+            if placed == [2, 2]:
+                break
+            time.sleep(0.05)
+        maxed = [e for j in jobs for e in srv.fsm.state.evals_by_job(j.namespace, j.id)
+                 if e.triggered_by == "max-plan-attempts"]
+        return placed, maxed
+    finally:
+        srv.stop()
+
+
+def test_a_plan_rejected_behind_an_inflight_apply_refreshes_past_it():
+    """Two concurrent evals of ``mock.job()``s on one node conflict on
+    their dynamic ports. The port answers the rejected plan once the
+    conflicting plan's apply has committed, with a refresh index no
+    older than that commit, so its worker re-plans around those ports
+    and both jobs are placed within seconds. The reference answers at
+    once with the committed index: the retry misses the in-flight plan,
+    is rejected again, and the batch eval, out of its two attempts,
+    blocks for the 60 s retry of failed evals (``max-plan-attempts``)."""
+    from nomad_tpu.server import fsm as jfsm
+
+    from nomad_tpu_torch.server import fsm as tfsm
+
+    kw = dict(deterministic=True, device_min_placements=0, num_schedulers=2)
+    placed, maxed = _two_jobs_on_one_node(Server, ServerConfig(device="cpu", **kw), mock,
+                                          tfsm.APPLY_PLAN_RESULTS_BATCH, 20.0)
+    assert placed == [2, 2] and maxed == []
+    placed, maxed = _two_jobs_on_one_node(JaxServer, JaxServerConfig(**kw), jmock,
+                                          jfsm.APPLY_PLAN_RESULTS_BATCH, 8.0)
+    assert sorted(placed) == [0, 2] and len(maxed) == 1

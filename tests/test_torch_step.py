@@ -132,7 +132,8 @@ def test_cpu_scan_launches_no_kernel():
     _torch_run(n_pad, static, carry, xs)
     assert kernels.LAUNCHES == {name: 0 for name in kernels.LAUNCHES}
     assert set(kernels.LAUNCHES) == {"place_scan", "place_scan_f32", "place_scan_has_pre",
-                                     "forced_eval", "forced_eval_f32", "chunk_scan"}
+                                     "forced_eval", "forced_eval_f32", "chunk_scan",
+                                     "place_scan_nodes", "place_scan_nodes_f32"}
 
 
 @pytest.mark.parametrize("scenario", ["affinities", "scale_up_down", "distinct_property",
@@ -173,7 +174,7 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels, "SOURCES", {
         name: csrc / path.name for name, path in kernels.SOURCES.items()})
     names = sorted(kernels.SOURCES)
-    assert names == ["chunk_scan", "forced_eval", "place_scan"]
+    assert names == ["chunk_scan", "forced_eval", "place_scan", "place_scan_nodes"]
     for name in names:
         assert csrc / "common.cuh" in kernels._compiled_files(kernels.SOURCES[name])
     before = {name: kernels._lib_path(name) for name in names}
@@ -186,4 +187,5 @@ def test_build_key_covers_included_headers(tmp_path, monkeypatch):
     again = {name: kernels._lib_path(name) for name in names}
     assert again["place_scan"] == after["place_scan"]
     assert again["chunk_scan"] == after["chunk_scan"]
+    assert again["place_scan_nodes"] == after["place_scan_nodes"]
     assert again["forced_eval"] != after["forced_eval"]
